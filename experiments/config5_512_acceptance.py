@@ -1,13 +1,11 @@
 """BASELINE config 5 at its mandated scale (512³+): acceptance runs.
 
-Two modes (the per-commit test suite covers the same machinery at small
+Modes (the per-commit test suite covers the same machinery at small
 shapes; this script is the full-scale demonstration, ~20 min on CPU):
 
-  --cpu-mesh   512³ volume sharded over 8 virtual CPU devices, reduced
-               iterations, warp parity vs the single-device solver.
-  --tpu-shard  the production per-shard block (64×512×512, z = 4 lane
-               slabs) solved on the real chip with the multi-slab Pallas
-               resample — the per-device work of a 512³/8-chip run.
+  --cpu-mesh      512³ volume sharded over 8 virtual CPU devices, reduced
+                  iterations, warp parity vs the single-device solver.
+  --schur-table   Schur vs sync at matched termination.
 
 Results are recorded in BASELINE.md's measured table.
 """
@@ -148,8 +146,8 @@ def schur_table(shape=(512, 512, 512), budget=32):
     (tests/test_scaling.py checks them against the loop-body jaxprs).
 
     CPU-mesh wall-clock is a proxy (collectives are shared-memory copies,
-    ~free, which UNDERSTATES Schur's advantage on real ICI); the rounds
-    column is hardware-independent.
+    ~free, which UNDERSTATES Schur's advantage on a real interconnect); the
+    rounds column is hardware-independent.
     """
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "")
@@ -238,51 +236,6 @@ def schur_table(shape=(512, 512, 512), budget=32):
     }))
 
 
-def tpu_shard():
-    import jax
-    import jax.numpy as jnp
-
-    from levelsetfusion_tpu.models.params import SmoothingMode, SolverParams
-    from levelsetfusion_tpu.models.single_level import solve_single_level
-
-    shape = (64, 512, 512)  # one shard of 512³ over 8 devices
-    canonical, live = _sphere_pair(shape)
-    n_iter = 30
-    params = SolverParams(
-        max_iterations=n_iter, learning_rate=0.3,
-        smoothing_term_weight=0.1, smoothing_mode=SmoothingMode.KILLING,
-        level_set_term_weight=0.1, sobolev_smoothing=True,
-        convergence_threshold=0.0, use_pallas_resample=True,
-        use_pallas_gradient="--no-fused" not in sys.argv,
-    )
-
-    def sync(x):
-        return float(jnp.sum(x))
-
-    t0 = time.time()
-    res = solve_single_level(canonical, live, params)
-    sync(res.warp)
-    compile_s = time.time() - t0
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.time()
-        res = solve_single_level(canonical, live, params)
-        sync(res.warp)
-        best = min(best, time.time() - t0)
-    voxels = shape[0] * shape[1] * shape[2]
-    rate = voxels * n_iter / best
-    out = {
-        "mode": "tpu_shard_64x512x512",
-        "shape": shape,
-        "iterations": n_iter,
-        "best_solve_seconds": best,
-        "compile_plus_first_seconds": compile_s,
-        "voxel_iter_per_s": rate,
-        "platform": jax.devices()[0].platform,
-    }
-    print(json.dumps(out))
-
-
 if __name__ == "__main__":
     if "--cpu-mesh" in sys.argv:
         cpu_mesh(schur="--schur" in sys.argv)
@@ -301,11 +254,8 @@ if __name__ == "__main__":
         if "--budget" in sys.argv:
             budget = int(sys.argv[sys.argv.index("--budget") + 1])
         schur_table(shape=shape, budget=budget)
-    elif "--tpu-shard" in sys.argv:
-        tpu_shard()
     else:
         print(
             "usage: config5_512_acceptance.py"
-            " [--cpu-mesh [--schur] | --schur-table [--small]"
-            " | --tpu-shard [--no-fused]]"
+            " [--cpu-mesh [--schur] | --schur-table [--small | --mid]]"
         )

@@ -5,9 +5,8 @@ previously ran fixed 30-60 iteration budgets and no summary recording
 ``converged: True`` existed for the sharded family).
 
 The iteration BUDGET is raised (the gate stays the preset's 1e-3); the
-energy, mesh, halos, and solver structure are the preset's own. Pallas
-kernels run in interpret mode on the CPU mesh (the same gates a TPU run
-takes; parity between the two paths is covered by the test suite).
+energy, mesh, halos, and solver structure are the preset's own. Run
+directories go under ``runs/c5_convergence/`` in the checkout.
 
 Usage: python experiments/config5_convergence.py [--budget N] [--only NAME]
 Prints one JSON line per preset; provenance for BASELINE.md.
@@ -56,11 +55,12 @@ def main():
         max_it = budget if cfg.mode == "sharded_3d" else max(budget // 8, 200)
         cfg = dataclasses.replace(
             cfg,
-            solver=cfg.solver.replace(
-                max_iterations=max_it, pallas_interpret=True
-            ),
+            solver=cfg.solver.replace(max_iterations=max_it),
         )
-        out = f"/tmp/c5_convergence/{name}"
+        out = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "runs", "c5_convergence", name,
+        )
         t0 = time.time()
         summary = run_experiment(cfg, out)
         row = {

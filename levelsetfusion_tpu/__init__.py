@@ -1,13 +1,13 @@
-"""levelsetfusion_tpu — TPU-native dense non-rigid reconstruction engine.
+"""levelsetfusion_tpu — dense non-rigid reconstruction engine in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the capabilities of the
-reference research codebase ``Algomorph/LevelSetFusion-Python`` (KillingFusion /
-SobolevFusion / SDF-2-SDF level-set fusion pipelines), redesigned TPU-first:
+A from-scratch JAX/XLA implementation of the capabilities of the reference
+research codebase ``Algomorph/LevelSetFusion-Python`` (KillingFusion /
+SobolevFusion / SDF-2-SDF level-set fusion pipelines), as fused device
+programs on an accelerator (an NVIDIA GPU):
 
 - ``core``     — grid specs, camera models, field containers (pure pytrees)
 - ``ops``      — TSDF generation, energy-term gradients, Sobolev filtering,
-                 interpolation/warping, pyramids; pure-jnp reference impls +
-                 Pallas TPU kernels (``ops.pallas``), parity-tested
+                 interpolation/warping, pyramids; plain jnp that XLA fuses
 - ``models``   — the algorithm families: single-level non-rigid warp solver
                  (KillingFusion/SobolevFusion modes), hierarchical
                  coarse-to-fine solver, rigid SDF-2-SDF Gauss-Newton solver,

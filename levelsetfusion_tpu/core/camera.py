@@ -75,10 +75,10 @@ def se2_matrix(angle: float, tx: float, tz: float) -> np.ndarray:
 def transform_points(matrix: jnp.ndarray, points: jnp.ndarray) -> jnp.ndarray:
     """Apply a homogeneous (D+1)x(D+1) transform to (..., D) points.
 
-    The matmul must run at full f32: TPU matmuls default to bf16 input
-    passes, which quantizes world coordinates to ~3 significant digits —
-    enough to shift depth-image sample positions by a fraction of a pixel
-    and (measured) push SDF-2-SDF pose recovery from 2e-4 to 0.117 error.
+    The matmul must run at full f32: at default precision a GPU may run an
+    f32 matmul in TF32, which keeps ~3 significant digits of the world
+    coordinates — enough to shift depth-image sample positions by a
+    fraction of a pixel and spoil SDF-2-SDF pose recovery.
     """
     import jax
 

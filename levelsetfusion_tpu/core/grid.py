@@ -8,9 +8,9 @@ reference mount was empty, so these are defined here and pinned by tests):
 - Spatial rank ``D`` is 2 or 3. Index axis ``d`` of the array maps directly to
   world axis ``d``:  ``world[d] = (offset[d] + index[d]) * voxel_size``.
   - 2D fields live in the camera's x–z plane: axis 0 = lateral ``x``,
-    axis 1 = depth ``z`` (contiguous / TPU lane dimension).
+    axis 1 = depth ``z`` (contiguous dimension).
   - 3D fields: axis 0 = ``x``, axis 1 = ``y``, axis 2 = ``z`` (depth,
-    contiguous / lane dimension).
+    contiguous dimension).
 - Warp fields store displacements in **voxel units** along the corresponding
   array axes; world displacement = warp * voxel_size.
 - TSDF values are truncated to [-1, 1]; voxels with no depth measurement

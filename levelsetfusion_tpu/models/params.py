@@ -36,19 +36,6 @@ class SolverParams:
     # Adaptive learning rate (reference's optional switch [MED]): halve the
     # rate whenever total energy increases between iterations.
     adaptive_learning_rate: bool = False
-    # TPU fast path: Pallas warp-resample kernel (ops/pallas/resample.py).
-    # Exact for per-voxel x/y displacements within ±pallas_max_displacement
-    # (clamped beyond); requires trailing spatial extent 128. Ignored off-TPU.
-    use_pallas_resample: bool = False
-    pallas_max_displacement: int = 2
-    # TPU fast path: fused data+smoothing+level-set(+Sobolev)+update kernel
-    # (ops/pallas/fused_gradient.py) for the stencil half of an iteration.
-    # Engages for 3D fields whose shape passes fused_supported(); exact
-    # (parity-tested) — falls back to the jnp assembly otherwise.
-    use_pallas_gradient: bool = False
-    # Test hook: run the Pallas kernel in interpret mode (works on CPU) and
-    # skip the TPU platform gate. Part of the static jit key.
-    pallas_interpret: bool = False
     # Distributed solvers: evaluate the global termination reduction (and
     # the adaptive-rate energy comparison) every k-th iteration instead of
     # every iteration, amortizing the fused psum/pmax round k×. k = 1 is
@@ -65,15 +52,6 @@ class SolverParams:
     def sobolev_radius(self) -> int:
         """Sobolev filter radius (0 when the filter is off)."""
         return self.sobolev_kernel_size // 2 if self.sobolev_smoothing else 0
-
-    @property
-    def stencil_halo(self) -> int:
-        """Ghost rows one solver iteration needs per side of a sharded
-        axis: stencil radius 2 (central differences + Hessian) plus the
-        Sobolev filter radius when the filter consumes the same exchanged
-        rows in-kernel (the fused path). Derived from the ACTUAL kernel
-        size, not a hardcoded default (ADVICE r4)."""
-        return 2 + self.sobolev_radius
 
 
 @dataclasses.dataclass(frozen=True)

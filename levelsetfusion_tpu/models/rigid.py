@@ -16,9 +16,9 @@ Per iteration (all on device, fixed iteration count in a ``lax.fori_loop``):
   3. normal equations  (Σ m J Jᵀ + λI) δ = −Σ m J e  solved with a tiny
      damped linear solve; pose update T ← exp(δ̂) ∘ T (small-angle exp).
 
-The per-voxel work is dense VPU math over the whole grid — the 3×3/6×6
-reduction is a trivial ``jnp.sum``; this maps to TPU with no gathers beyond
-the depth-image sampling inside TSDF generation.
+The per-voxel work is dense elementwise math over the whole grid — the
+3×3/6×6 reduction is a trivial ``jnp.sum``; there are no gathers beyond the
+depth-image sampling inside TSDF generation.
 """
 
 from __future__ import annotations
@@ -33,6 +33,16 @@ from levelsetfusion_tpu.core.camera import Camera2d, PinholeCamera
 from levelsetfusion_tpu.core.grid import GridSpec, voxel_center_coordinates
 from levelsetfusion_tpu.ops import derivatives
 from levelsetfusion_tpu.ops.tsdf import GenerationMethod, generate_tsdf_2d, generate_tsdf_3d
+
+
+# Full f32 for every contraction here: at default precision a GPU may run
+# an f32 matmul in TF32.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    """Small pose matmul at full f32 (not TF32)."""
+    return jnp.matmul(a, b, precision=_HIGHEST)
 
 
 class Sdf2SdfResult(NamedTuple):
@@ -82,21 +92,22 @@ def solve_rigid_2d(
         # ∇_p Φ in world units (1/m): array grads are per-voxel.
         grad_p = derivatives.gradient(live) / grid.voxel_size  # (X, Z, 2)
         r = ext[:2, :2]
-        grad_q = jnp.einsum("ij,...j->...i", r, grad_p)  # (X, Z, 2)
+        # ∇_q Φ, (X, Z, 2)
+        grad_q = jnp.einsum("ij,...j->...i", r, grad_p, precision=_HIGHEST)
 
         # q = R p + t; dq/dθ = dR/dθ p with R(θ)=[[c,-s],[s,c]]:
         # dR/dθ = [[-s,-c],[c,-s]] = S R where S = [[0,-1],[1,0]].
-        q = jnp.einsum("ij,...j->...i", r, points) + ext[:2, 2]
+        q = (
+            jnp.einsum("ij,...j->...i", r, points, precision=_HIGHEST)
+            + ext[:2, 2]
+        )
         dq_dtheta = jnp.stack([-q[..., 1], q[..., 0]], axis=-1)
 
         j = jnp.concatenate([grad_q, jnp.sum(grad_q * dq_dtheta, -1, keepdims=True)], -1)  # (X, Z, 3)
-        # Full-grid contractions lower to MXU matmuls, whose default
-        # (bf16-pass) precision destroys the tiny normal system on TPU —
-        # measured 0.117 pose error vs 2e-4 at HIGHEST. Force f32 passes.
         jtj = jnp.einsum("...i,...j->ij", mask[..., None] * j, j,
-                         precision=jax.lax.Precision.HIGHEST)
+                         precision=_HIGHEST)
         jte = jnp.einsum("...i,...->i", j, mask * e,
-                         precision=jax.lax.Precision.HIGHEST)
+                         precision=_HIGHEST)
         delta = jnp.linalg.solve(
             jtj + damping * jnp.eye(3, dtype=canonical.dtype), -jte
         )
@@ -107,7 +118,7 @@ def solve_rigid_2d(
             [[c, -s, delta[0]], [s, c, delta[1]], [0.0, 0.0, 1.0]],
             canonical.dtype,
         )
-        return inc @ ext, energies.at[it].set(energy), it + 1
+        return _mm(inc, ext), energies.at[it].set(energy), it + 1
 
     energies0 = jnp.zeros((iterations,), canonical.dtype)
     ext, energies, _ = jax.lax.fori_loop(
@@ -165,19 +176,19 @@ def solve_rigid_3d(
 
         grad_p = derivatives.gradient(live) / grid.voxel_size  # (..., 3)
         r = ext[:3, :3]
-        grad_q = jnp.einsum("ij,...j->...i", r, grad_p)
-        q = jnp.einsum("ij,...j->...i", r, points) + ext[:3, 3]
+        grad_q = jnp.einsum("ij,...j->...i", r, grad_p, precision=_HIGHEST)
+        q = (
+            jnp.einsum("ij,...j->...i", r, points, precision=_HIGHEST)
+            + ext[:3, 3]
+        )
 
         # J = [∇_qΦ | ∇_qΦ · (−[q]×)] = [∇_qΦ | q × ∇_qΦ].
         j_rot = jnp.cross(q, grad_q)
         j = jnp.concatenate([grad_q, j_rot], axis=-1)  # (..., 6)
-        # Full-grid contractions lower to MXU matmuls, whose default
-        # (bf16-pass) precision destroys the tiny normal system on TPU —
-        # measured 0.117 pose error vs 2e-4 at HIGHEST. Force f32 passes.
         jtj = jnp.einsum("...i,...j->ij", mask[..., None] * j, j,
-                         precision=jax.lax.Precision.HIGHEST)
+                         precision=_HIGHEST)
         jte = jnp.einsum("...i,...->i", j, mask * e,
-                         precision=jax.lax.Precision.HIGHEST)
+                         precision=_HIGHEST)
         delta = jnp.linalg.solve(
             jtj + damping * jnp.eye(6, dtype=canonical.dtype), -jte
         )
@@ -190,11 +201,11 @@ def solve_rigid_3d(
         rot = (
             jnp.eye(3, dtype=canonical.dtype)
             + jnp.sin(theta) * k
-            + (1.0 - jnp.cos(theta)) * (k @ k)
+            + (1.0 - jnp.cos(theta)) * _mm(k, k)
         )
         inc = jnp.eye(4, dtype=canonical.dtype)
         inc = inc.at[:3, :3].set(rot).at[:3, 3].set(delta[:3])
-        return inc @ ext, energies.at[it].set(energy), it + 1
+        return _mm(inc, ext), energies.at[it].set(energy), it + 1
 
     energies0 = jnp.zeros((iterations,), canonical.dtype)
     ext, energies, _ = jax.lax.fori_loop(

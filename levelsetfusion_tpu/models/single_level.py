@@ -7,8 +7,8 @@ dynamic-index updates, and termination (max per-voxel warp-update length
 below threshold, or iteration cap) is decided on device. No host round
 trips inside the loop.
 
-TPU notes: the whole iteration body (resample gather + stencils + updates)
-compiles to one XLA program; under sharding the same body runs per voxel
+The whole iteration body (resample gather + stencils + updates) compiles to
+one XLA program; under sharding the same body runs per voxel
 block with halo exchange (see ``parallel/``), and the termination reduction
 becomes a ``psum``/``pmax`` — semantics identical to this single-device
 version, which the parity tests assert.
@@ -45,11 +45,10 @@ class SolveResult(NamedTuple):
     telemetry: SolveTelemetry
     # Per-axis running max of |u| (voxel units) over every warp the solve
     # resampled with (incl. the warm start) — the displacement-contract
-    # observable: the Pallas resample clamps reads beyond
-    # ``pallas_max_displacement`` and the sharded solvers read truncation
-    # fill beyond ``live_halo − 2`` rows, both silently; this scalar per
+    # observable: the sharded solvers read truncation fill beyond
+    # ``live_halo − 2`` rows of a block edge, silently; this scalar per
     # axis is what ``utils.debug.check_displacement_contract`` compares
-    # against those limits. None on result paths that predate the guard.
+    # against that limit.
     max_abs_displacement: jnp.ndarray | None = None
 
 
@@ -63,17 +62,13 @@ class _LoopState(NamedTuple):
     max_disp: jnp.ndarray  # (D,) running max |u| per axis
 
 
-def _axis_max_abs(warp, component_major: bool):
-    """Per-axis max |u|: warp is (D, *spatial) or (*spatial, D)."""
-    if component_major:
-        axes = tuple(range(1, warp.ndim))
-        return jnp.max(jnp.abs(warp), axis=axes)
+def _axis_max_abs(warp):
+    """Per-axis max |u| of a ``(*spatial, D)`` warp."""
     return jnp.max(jnp.abs(warp), axis=tuple(range(warp.ndim - 1)))
 
 
-def _solver_step(canonical, live, warp, params: SolverParams, kernel,
-                 prepared_live=None):
-    res = warp_energy_gradient(
+def _solver_step(canonical, live, warp, params: SolverParams, kernel):
+    return warp_energy_gradient(
         canonical,
         live,
         warp,
@@ -84,12 +79,7 @@ def _solver_step(canonical, live, warp, params: SolverParams, kernel,
         rigidity_enforcement_factor=params.rigidity_enforcement_factor,
         band_union_only=params.band_union_only,
         sobolev_kernel=kernel,
-        use_pallas_resample=params.use_pallas_resample,
-        pallas_max_displacement=params.pallas_max_displacement,
-        prepared_live=prepared_live,
-        pallas_interpret=params.pallas_interpret,
     )
-    return res
 
 
 @partial(jax.jit, static_argnames=("params",))
@@ -122,71 +112,16 @@ def solve_single_level(
         else None
     )
 
-    # Fused stencil+Sobolev+update kernel (ops/pallas/fused_gradient.py):
-    # statically gated on shape support; the loop then carries the warp
-    # component-major (3, x, y, z) — the layout both Pallas kernels want —
-    # so no per-iteration transposes happen.
-    use_fused = False
-    taps = ()
-    if params.use_pallas_gradient and d == 3:
-        from levelsetfusion_tpu.ops.pallas.fused_gradient import (
-            fused_supported,
-            sobolev_taps,
-        )
-
-        if fused_supported(
-            canonical.shape,
-            interpret=params.pallas_interpret,
-            sobolev=params.sobolev_smoothing,
-            sobolev_radius=params.sobolev_radius or 3,
-        ):
-            use_fused = True
-            if params.sobolev_smoothing:
-                taps = sobolev_taps(
-                    params.sobolev_kernel_size, params.sobolev_strength
-                )
-
-    # Hoist the loop-invariant Pallas resample prep (stacked y-shifted copies
-    # of the live field) out of the while_loop — XLA does not do this LICM.
-    prepared_live = None
-    if params.use_pallas_resample and d == 3:
-        from levelsetfusion_tpu.ops.pallas.resample import (
-            compute_skip_flags,
-            pallas_resample_supported,
-            pick_y_block,
-            prepare_field,
-        )
-
-        if pallas_resample_supported(live, params.pallas_interpret):
-            stacked = prepare_field(live, params.pallas_max_displacement)
-            flags = compute_skip_flags(
-                stacked,
-                live.shape[0],
-                pick_y_block(live.shape),
-                params.pallas_max_displacement,
-            )
-            prepared_live = (stacked, flags)
-
     n = params.max_iterations
-    num_voxels = float(canonical.size)
     zeros = jnp.zeros((n,), canonical.dtype)
-    warp0 = jnp.moveaxis(initial_warp, -1, 0) if use_fused else initial_warp
     init = _LoopState(
-        warp=warp0,
+        warp=initial_warp,
         iteration=jnp.zeros((), jnp.int32),
         max_update=jnp.full((), jnp.inf, canonical.dtype),
         learning_rate=jnp.asarray(params.learning_rate, canonical.dtype),
         prev_energy=jnp.full((), jnp.inf, canonical.dtype),
         telemetry=SolveTelemetry(zeros, zeros, zeros, zeros, zeros),
-        # Fused path: the kernel reports per-axis max |u'| of each updated
-        # warp in its stats (free — the data is in VMEM), so the loop only
-        # needs the warm start's max here; the jnp path reduces per
-        # iteration as before.
-        max_disp=(
-            _axis_max_abs(warp0, use_fused)
-            if use_fused
-            else jnp.zeros((d,), canonical.dtype)
-        ),
+        max_disp=jnp.zeros((d,), canonical.dtype),
     )
 
     def cond(state: _LoopState):
@@ -194,80 +129,17 @@ def solve_single_level(
             state.max_update >= params.convergence_threshold
         )
 
-    def _step_fused(warp_cm, rate):
-        """Resample + one fused stencil/Sobolev/update kernel call."""
-        from levelsetfusion_tpu.ops.gradient import EnergyBreakdown, SmoothingMode
-        from levelsetfusion_tpu.ops.interpolation import warp_field
-        from levelsetfusion_tpu.ops.pallas.fused_gradient import (
-            fused_gradient_update,
-        )
-
-        if prepared_live is not None:
-            from levelsetfusion_tpu.ops.pallas.resample import (
-                pick_y_block,
-                warp_field_pallas_prepared,
-            )
-
-            stacked, flags = prepared_live
-            warped = warp_field_pallas_prepared(
-                stacked,
-                warp_cm,
-                params.pallas_max_displacement,
-                y_block=pick_y_block(live.shape),
-                interpret=params.pallas_interpret,
-                skip_flags=flags,
-                component_major=True,
-            )
-        else:
-            warped = warp_field(live, jnp.moveaxis(warp_cm, 0, -1))
-        new_warp, stats = fused_gradient_update(
-            warped,
-            canonical,
-            warp_cm,
-            rate,
-            w_data=params.data_term_weight,
-            w_smooth=params.smoothing_term_weight,
-            w_ls=params.level_set_term_weight,
-            killing=params.smoothing_mode is SmoothingMode.KILLING,
-            gamma=params.rigidity_enforcement_factor,
-            band_union=params.band_union_only,
-            taps=taps,
-            interpret=params.pallas_interpret,
-        )
-        energies = EnergyBreakdown(
-            data=stats.data_energy,
-            smoothing=stats.smoothing_energy,
-            level_set=stats.level_set_energy,
-        )
-        return (
-            new_warp, stats.max_update, stats.sum_update / num_voxels,
-            energies, stats.max_abs_u,
-        )
-
     def body(state: _LoopState):
         # The warp entering this body is what the resample gathers with —
-        # exactly the value the displacement contract constrains. The fused
-        # kernel reports each UPDATED warp's per-axis max in stats, so with
-        # the warm start folded into the init the running max covers the
-        # same set of warps on both paths.
-        if use_fused:
-            new_warp, max_update, mean_update, energies, mxu = _step_fused(
-                state.warp, state.learning_rate
-            )
-            max_disp = jnp.maximum(state.max_disp, mxu)
-        else:
-            max_disp = jnp.maximum(
-                state.max_disp, _axis_max_abs(state.warp, use_fused)
-            )
-            res = _solver_step(
-                canonical, live, state.warp, params, kernel, prepared_live
-            )
-            update = -state.learning_rate * res.gradient
-            new_warp = state.warp + update
-            update_len = jnp.sqrt(jnp.sum(update * update, axis=-1))
-            max_update = jnp.max(update_len)
-            mean_update = jnp.mean(update_len)
-            energies = res.energies
+        # exactly the value the displacement contract constrains.
+        max_disp = jnp.maximum(state.max_disp, _axis_max_abs(state.warp))
+        res = _solver_step(canonical, live, state.warp, params, kernel)
+        update = -state.learning_rate * res.gradient
+        new_warp = state.warp + update
+        update_len = jnp.sqrt(jnp.sum(update * update, axis=-1))
+        max_update = jnp.max(update_len)
+        mean_update = jnp.mean(update_len)
+        energies = res.energies
 
         energy = energies.total
         if params.adaptive_learning_rate:
@@ -300,11 +172,11 @@ def solve_single_level(
 
     final = jax.lax.while_loop(cond, body, init)
     return SolveResult(
-        warp=jnp.moveaxis(final.warp, 0, -1) if use_fused else final.warp,
+        warp=final.warp,
         iterations=final.iteration,
         converged=final.max_update < params.convergence_threshold,
         telemetry=final.telemetry,
         max_abs_displacement=jnp.maximum(
-            final.max_disp, _axis_max_abs(final.warp, use_fused)
+            final.max_disp, _axis_max_abs(final.warp)
         ),
     )

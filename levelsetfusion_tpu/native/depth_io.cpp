@@ -1,8 +1,8 @@
 // Native depth-image IO + threaded dataset prefetcher.
 //
 // The reference's only native component is a C++ optimization module
-// (SURVEY.md §2.15); in this TPU-native build the compute path is
-// Pallas/XLA, and the host-side component that genuinely benefits from
+// (SURVEY.md §2.15); in this build the compute path is XLA, and the
+// host-side component that genuinely benefits from
 // native code is the data path: decoding 16-bit depth PNGs (libpng) and
 // prefetching frames ahead of the device pipeline (std::thread pool with a
 // bounded queue), so TSDF generation never stalls on disk/decode.

@@ -17,9 +17,9 @@ Hessians, and stencil Laplacians for the smoothing terms — SURVEY.md §2.4/2.5
   Killing smoothing term.
 
 All operators are dimension-generic (2D/3D), pure jnp, jit/vmap-safe, and run
-as fused VPU stencils under XLA. Everything is unit-spacing: callers convert
-to metric units with the grid's voxel size if needed (the reference's energy
-formulation is likewise expressed in voxel units).
+as fused elementwise stencils under XLA. Everything is unit-spacing: callers
+convert to metric units with the grid's voxel size if needed (the reference's
+energy formulation is likewise expressed in voxel units).
 """
 
 from __future__ import annotations

@@ -6,10 +6,8 @@ One function computes everything a solver iteration needs from
     g = w_data * ∇E_data + w_smooth * ∇E_smooth + w_ls * ∇E_ls
     (optionally Sobolev-filtered)
 
-plus the individual term energies for telemetry. This is the pure-jnp
-reference implementation (XLA fuses the stencils into a handful of VPU
-passes); ``ops.pallas.fused_gradient`` provides the hand-tiled TPU kernel
-for the stencil part and is parity-tested against this.
+plus the individual term energies for telemetry. Plain jnp: XLA fuses the
+stencils, term math and update into a few loop fusions per iteration.
 """
 
 from __future__ import annotations
@@ -54,42 +52,9 @@ def warp_energy_gradient(
     rigidity_enforcement_factor: float = 0.1,
     band_union_only: bool = True,
     sobolev_kernel: jnp.ndarray | None = None,
-    use_pallas_resample: bool = False,
-    pallas_max_displacement: int = 2,
-    prepared_live: tuple | None = None,
-    pallas_interpret: bool = False,
 ) -> GradientResult:
-    """Combined energy gradient at the current warp. Weights/modes are static.
-
-    ``prepared_live``: optional ``(prepare_field(live), skip_flags_or_None)``
-    pair — solvers pass it to skip the loop-invariant stack rebuild (and,
-    with flags, fully-truncated blocks) each iteration.
-    """
-    if use_pallas_resample:
-        from levelsetfusion_tpu.ops.pallas.resample import (
-            pick_y_block,
-            warp_field_fast,
-            warp_field_pallas_prepared,
-        )
-        from levelsetfusion_tpu.ops.derivatives import gradient as _grad
-
-        if prepared_live is not None:
-            stacked, skip_flags = prepared_live
-            warped = warp_field_pallas_prepared(
-                stacked,
-                warp,
-                pallas_max_displacement,
-                y_block=pick_y_block(live.shape),
-                interpret=pallas_interpret,
-                skip_flags=skip_flags,
-            )
-        else:
-            warped = warp_field_fast(
-                live, warp, pallas_max_displacement, interpret=pallas_interpret
-            )
-        warped_grad = _grad(warped)
-    else:
-        warped, warped_grad = interpolation.warp_field_with_gradient(live, warp)
+    """Combined energy gradient at the current warp. Weights/modes are static."""
+    warped, warped_grad = interpolation.warp_field_with_gradient(live, warp)
 
     g_data, e_data = terms.data_term(
         warped, canonical, warped_grad, band_union_only=band_union_only

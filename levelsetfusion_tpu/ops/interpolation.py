@@ -11,9 +11,8 @@ The single most-used primitive of the pipeline: resample a (TSDF) field at
 - ``warp`` holds per-voxel displacements in voxel units, component ``d``
   along array axis ``d``.
 
-Implemented dimension-generically with ``2**D`` corner gathers; under jit XLA
-lowers these to TPU gathers. A Pallas kernel version for the hot path lives
-in ``ops/pallas/resample.py`` and is parity-tested against this one.
+Implemented dimension-generically with ``2**D`` corner gathers, which XLA
+fuses into one gather loop under jit.
 """
 
 from __future__ import annotations
@@ -112,7 +111,7 @@ def advect_field(
     The backward flavor (``warp_field``) asks "what was at the place this
     voxel came from"; this one asks "where does this voxel's value go" —
     the reference uses it when updating a field under a warp defined on the
-    SOURCE grid. Scatter-add lowers to TPU segment-sums under jit.
+    SOURCE grid. Scatter-add lowers to XLA scatters under jit.
     """
     d = field.ndim
     assert warp.shape == field.shape + (d,), (field.shape, warp.shape)

@@ -139,6 +139,8 @@ def level_set_term(
         energy_terms = jnp.where(mask, (norm - 1.0) ** 2, 0.0)
     else:
         energy_terms = (norm - 1.0) ** 2
-    grad = scale[..., None] * jnp.einsum("...ij,...j->...i", hess, g)
+    # Broadcast-multiply-sum, not einsum: a per-voxel 3×3 contraction as a
+    # dot_general may run in TF32 on the GPU.
+    grad = scale[..., None] * jnp.sum(hess * g[..., None, :], axis=-1)
     energy = 0.5 * jnp.sum(energy_terms)
     return grad, energy

@@ -24,7 +24,8 @@ Conventions (pinned by tests/test_tsdf.py):
 
 Everything is fully vectorized over voxels (one projection + a static
 Gaussian-footprint gather window), jit-friendly with static grid specs —
-this is HOT LOOP #1 of SURVEY.md §3.1, mapped to TPU as dense VPU work.
+this is HOT LOOP #1 of SURVEY.md §3.1, mapped to the device as dense
+elementwise work.
 """
 
 from __future__ import annotations

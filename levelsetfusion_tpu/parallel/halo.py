@@ -6,7 +6,7 @@ axis-parametric (``axis=0`` default — the 1D solver; the 2D solver passes
 ``axis=1`` for the second sharded dimension):
 
 - ``halo_exchange``: pull ``width`` boundary slices from both neighbors
-  along ``axis`` with ``lax.ppermute`` (ICI neighbor exchange); at the two
+  along ``axis`` with ``lax.ppermute`` (neighbor exchange); at the two
   global boundaries the halo is synthesized per ``fill``:
     * ``"replicate"`` — copy the block's edge slice (Neumann ghost cells;
       the convention of the framework's Laplacian),

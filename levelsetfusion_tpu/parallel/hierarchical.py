@@ -49,43 +49,6 @@ def _max_displacement_rows(warp, axes=(0,)) -> float:
     )
 
 
-def level_k_used(params, level_shape, live_halo, mesh_counts) -> int | tuple:
-    """The Pallas-resample clamp a hierarchical level's solve actually ran
-    under (0 = the exact gather ran, no clamp). ``live_halo`` is the
-    level's entry from ``HierarchicalResult.level_halos`` (None =
-    replicated level → whole-volume resample gate); ``mesh_counts`` is
-    ``(nd,)`` for the 1D mesh or ``(nd0, nd1)`` for the 2D mesh. Used by
-    the fusion driver's per-level displacement-contract checks (ADVICE r4:
-    passing k_used=0 disabled the clamp check at exactly the fine levels
-    the per-shard kernel runs on)."""
-    from levelsetfusion_tpu.models.fusion import field_stub
-
-    stub = field_stub(level_shape)
-    if live_halo is None:
-        from levelsetfusion_tpu.ops.pallas.resample import (
-            pallas_resample_supported,
-        )
-
-        engaged = (
-            params.use_pallas_resample
-            and stub.ndim == 3
-            and pallas_resample_supported(stub, params.pallas_interpret)
-        )
-    elif len(mesh_counts) == 2:
-        from levelsetfusion_tpu.parallel.sharded2d import block2d_fast_paths
-
-        _, engaged = block2d_fast_paths(
-            params, stub, live_halo, mesh_counts[0], mesh_counts[1]
-        )
-    else:
-        from levelsetfusion_tpu.parallel.sharded import block_fast_paths
-
-        _, engaged = block_fast_paths(
-            params, stub, live_halo, mesh_counts[0]
-        )
-    return params.pallas_max_displacement if engaged else 0
-
-
 def _level_can_shard(shape, n_devices: int, min_rows: int) -> bool:
     return shape[0] % n_devices == 0 and shape[0] // n_devices >= min_rows
 

@@ -1,8 +1,7 @@
 """Device mesh construction (SURVEY.md §5 distributed backend).
 
 The TSDF volume is sharded by voxel blocks along spatial axis 0 over a 1D
-mesh (the "x" axis rides ICI within a slice; multi-slice layouts extend the
-same mesh over DCN — the collectives are identical). Helpers here keep mesh
+mesh ("x"), or along axes 0 and 1 over a 2D mesh. Helpers here keep mesh
 plumbing out of the solvers.
 """
 
@@ -53,10 +52,8 @@ def initialize_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Multi-host bring-up: ``jax.distributed.initialize`` + a mesh over all
-    global devices. On a pod slice the 1D block mesh spans hosts — halo
-    ppermutes ride ICI between neighboring chips; only the two cross-host
-    boundary exchanges per step touch DCN. No-ops on a single process.
+    """Multi-process bring-up: ``jax.distributed.initialize`` so a mesh can
+    span every process's devices. No-ops on a single process.
 
     Exercised by ``tests/test_distributed_smoke.py``: two real OS processes
     (one CPU device each) bring up the coordinator, form the global mesh,
@@ -91,10 +88,6 @@ def solve_single_level_auto(
     config 5 mandates explicit voxel-block halo exchange, and (b) explicit
     neighbor ``ppermute`` of 2–3 ghost rows beats the partitioner's general
     handling of the resample gather (which may all-gather the live volume).
-    Pallas caveat: ``pallas_call`` has no SPMD partitioning rules, so under
-    GSPMD the partitioner falls back to gathering its operands — correct
-    (asserted in tests/test_parallel.py) but not the fast path; use the
-    explicit sharded solvers when Pallas kernels should run per shard.
     """
     from levelsetfusion_tpu.models.params import SolverParams
     from levelsetfusion_tpu.models.single_level import solve_single_level

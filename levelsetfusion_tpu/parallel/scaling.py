@@ -1,32 +1,21 @@
-"""Static communication accounting + ICI scaling model (BASELINE north_star
-"≥80% scaling efficiency at N hosts").
+"""Static communication accounting + a link-priced scaling model for the
+sharded warp solvers, on any mesh.
 
-Real multi-chip hardware is not available in this environment, but the
-sharded solvers' communication volume is *statically knowable*: every
+The sharded solvers' communication volume is *statically knowable*: every
 collective in ``parallel.sharded`` / ``parallel.schur`` moves a fixed
 number of ghost planes per iteration, set by the stencil/filter radii and
 the solver structure — there is no data-dependent communication anywhere.
 This module computes those volumes exactly and combines them with a
-measured single-chip iteration time and an assumed per-link ICI bandwidth
-into a predicted N-chip scaling efficiency, with every assumption explicit
-and parameterized. ``experiments/halo_overhead.py`` measures the 1-device-
-mesh overhead (shard_map + layout cost with zero real ppermutes) on the
-real chip; this model covers the part hardware absence leaves open.
+measured single-device iteration time and caller-supplied link parameters
+(bandwidth per direction, latency per collective round) into a predicted
+N-device efficiency. Nothing here assumes a particular interconnect: the
+link parameters are required arguments.
 
 Collective inventory (1D mesh, per device, per solver iteration; verified
 against the loop-body jaxprs by tests/test_scaling.py):
 
-- sync solver, fused-kernel path (round-5 overlap structure): the warp
-  halo exchange (``hx`` ghost rows per side — hx = 2 + Sobolev radius —
-  3 warp components) is issued with NO consumer before the stencil
-  kernel, so it can fly under the resample's compute (the resample reads
-  only the local warp); the warped-field ghost rows then come from the
-  neighbors' interiors — a second, 1-scalar-channel exchange (hx rows)
-  that IS on the critical path between resample and stencil kernel.
-  ``bytes_overlappable_per_iteration`` reports the first exchange's
-  volume; ``predict_efficiency``'s ``overlap`` credits only it.
-- sync solver, jnp path: warp halo (2 rows) + with Sobolev a combined-
-  gradient halo (r rows), 3 components each; no overlappable portion.
+- sync solver: warp halo (2 rows) + with Sobolev a combined-gradient halo
+  (r rows), 3 components each.
 - Schur solver, per OUTER step (amortized over T inner iterations): warp
   halo (2 rows) + interface directions (1 row), 3 components.
 - Once per solve: live-field halo (``live_halo`` rows, 1 scalar channel) —
@@ -51,11 +40,6 @@ from levelsetfusion_tpu.models.params import SolverParams
 F32 = 4
 
 
-def _stencil_halo(params: SolverParams) -> int:
-    """Ghost rows the warp exchange needs per side per iteration."""
-    return params.stencil_halo
-
-
 @dataclasses.dataclass(frozen=True)
 class CommBudget:
     """Per-device communication volume, bytes, send direction only (links
@@ -66,10 +50,6 @@ class CommBudget:
     bytes_once_per_solve: int  # live-field halo exchange
     ppermute_rounds_per_iteration: float  # may be fractional (Schur: 2/T)
     reduction_rounds_per_iteration: float
-    # Portion of bytes_per_iteration issued with no consumer before the
-    # stencil kernel (the fused path's warp halo) — overlappable with the
-    # resample's compute; the remainder is on the critical path.
-    bytes_overlappable_per_iteration: int = 0
 
     def total_bytes(self, iterations: int) -> int:
         return self.bytes_per_iteration * iterations + self.bytes_once_per_solve
@@ -83,7 +63,6 @@ def comm_bytes_per_iteration(
     live_halo: int = 8,
     solver_kind: str = "sync",
     inner_iterations: int = 8,
-    fused: bool = True,
     dtype_bytes: int = F32,
 ) -> CommBudget:
     """Exact per-device neighbor-exchange volume for one solver iteration.
@@ -91,8 +70,7 @@ def comm_bytes_per_iteration(
     Args:
       shape: global (X, Y, Z) voxel volume.
       mesh_shape: (n0,) for the 1D mesh or (n0, n1) for the 2D mesh.
-      solver_kind: "sync" | "schur" (1D mesh only).
-      fused: fused-kernel path (one hx-row exchange) vs jnp path.
+      solver_kind: "sync" | "schur" (1D mesh only) | "schur2d" (2D mesh).
     """
     d = len(shape)
     if len(mesh_shape) == 1:
@@ -104,7 +82,6 @@ def comm_bytes_per_iteration(
     z = shape[2] if d > 2 else 1
     plane0 = y_local * z  # voxels in one axis-0 ghost plane
     plane1 = x_local * z  # voxels in one axis-1 ghost plane (2D mesh)
-    hx = _stencil_halo(params)
 
     def _warp_rows(rows: int) -> int:
         # ghost rows × 2 sides × d warp components, both mesh axes if 2D.
@@ -135,18 +112,15 @@ def comm_bytes_per_iteration(
     if solver_kind == "schur2d":
         if n1 == 1:
             raise ValueError("schur2d needs a 2D mesh")
-        # Slow axis (0): frozen warp halo (2 rows) + interface directions
-        # (1 row) per OUTER step, amortized over T inner iterations. Fast
-        # axis (1): one live warp-ghost exchange per INNER iteration,
-        # carried on the x-extended block (n0+4 rows) — 8 ghost cols on
-        # the fused-kernel path (the y-window's sublane-aligned y_lo
-        # rule), 2 on the jnp path.
-        cols = 8 if fused else 2
-        slow_outer = (2 + 1) * 2 * d * plane0 * dtype_bytes
-        fast_iter = cols * 2 * d * (x_local + 4) * z * dtype_bytes
+        # Axis 0: frozen warp halo (2 rows) + interface directions (1 row)
+        # per OUTER step, amortized over T inner iterations. Axis 1: one
+        # live 2-column warp-ghost exchange per INNER iteration, carried on
+        # the x-extended block (n0+4 rows).
+        axis0_outer = (2 + 1) * 2 * d * plane0 * dtype_bytes
+        axis1_iter = 2 * 2 * d * (x_local + 4) * z * dtype_bytes
         return CommBudget(
             bytes_per_iteration=(
-                math.ceil(slow_outer / inner_iterations) + fast_iter
+                math.ceil(axis0_outer / inner_iterations) + axis1_iter
             ),
             bytes_once_per_solve=live_once,
             ppermute_rounds_per_iteration=1.0 + 2.0 / inner_iterations,
@@ -154,29 +128,16 @@ def comm_bytes_per_iteration(
         )
 
     k_int = max(1, params.termination_check_interval)
-    if fused:
-        # Overlap structure: warp halo (3 components, overlappable) +
-        # warped-field ghosts (1 scalar channel, critical path).
-        warp_bytes = _warp_rows(hx)
-        warped_bytes = hx * 2 * plane0 * dtype_bytes
-        if n1 > 1:
-            warped_bytes += hx * 2 * plane1 * dtype_bytes
-        per_iter = warp_bytes + warped_bytes
-        overlappable = warp_bytes
-        rounds = 2.0 if n1 == 1 else 4.0
-    else:
-        per_iter = _warp_rows(2)
-        overlappable = 0
-        rounds = 1.0 if n1 == 1 else 2.0
-        if params.sobolev_smoothing:
-            per_iter += _warp_rows(params.sobolev_radius)
-            rounds += 1.0 if n1 == 1 else 2.0
+    per_iter = _warp_rows(2)
+    rounds = 1.0 if n1 == 1 else 2.0
+    if params.sobolev_smoothing:
+        per_iter += _warp_rows(params.sobolev_radius)
+        rounds += 1.0 if n1 == 1 else 2.0
     return CommBudget(
         bytes_per_iteration=per_iter,
         bytes_once_per_solve=live_once,
         ppermute_rounds_per_iteration=rounds,
         reduction_rounds_per_iteration=1.0 / k_int,
-        bytes_overlappable_per_iteration=overlappable,
     )
 
 
@@ -196,49 +157,34 @@ def predict_efficiency(
     params: SolverParams,
     compute_s_per_iteration: float,
     *,
+    link_bytes_per_s: float,
+    round_latency_s: float,
     live_halo: int = 8,
     solver_kind: str = "sync",
     inner_iterations: int = 8,
-    fused: bool = True,
-    link_bytes_per_s: float = 4.5e10,
-    round_latency_s: float = 5e-6,
-    overlap: float = 0.0,
 ) -> ScalingPrediction:
-    """Predicted N-chip scaling efficiency for the sharded warp solve.
+    """Predicted N-device efficiency for the sharded warp solve.
 
     Model: per iteration each device sends its ghost planes to both
-    neighbors. A TPU v5e chip has one ICI link per torus direction at
-    ~45 GB/s each way [assumption: public v5e figure; parameterize
-    ``link_bytes_per_s`` for other generations]; the two sides of an axis
-    use different links, so the serialized transfer time is the one-side
-    volume over one link. Reduction/ppermute rounds each cost
-    ``round_latency_s`` (ICI latency, microseconds on a slice — dominant
-    only for tiny shards). ``overlap`` ∈ [0, 1] credits compute/comm
-    overlap for the OVERLAPPABLE portion only (the fused path's warp halo,
-    which by construction has no consumer before the stencil kernel — see
-    the module docstring; the warped-ghost exchange stays on the critical
-    path at any overlap setting). 0 remains the conservative default.
+    neighbors at ``link_bytes_per_s`` per direction; the two sides of an
+    axis use the two directions, so the serialized transfer time is the
+    one-side volume over one link. Every ppermute or reduction round costs
+    ``round_latency_s``. Transfers are priced serialized with compute (no
+    overlap credit).
 
-    Efficiency = t_compute / (t_compute + t_comm_effective + t_latency):
-    per-device compute is constant in N (the volume shards), so the only
-    deviation from linear scaling is the (N-independent) halo traffic —
-    this is the weak-scaling-flat regime the ≥80% target lives in. The
-    model is per-iteration steady-state; the once-per-solve live halo and
-    any DCN hop for multi-slice meshes are excluded (a DCN hop at ~25 GB/s
-    would change link_bytes_per_s for the slice-boundary devices only).
+    Efficiency = t_compute / (t_compute + t_comm + t_latency): per-device
+    compute is constant in N (the volume shards), so the only deviation
+    from linear weak scaling is the (N-independent) halo traffic. The
+    model is per-iteration steady state; the once-per-solve live halo is
+    excluded.
     """
     if solver_kind == "schur2d":
         raise ValueError("use predict_efficiency_2d for schur2d")
     b = comm_bytes_per_iteration(
         shape, mesh_shape, params, live_halo=live_halo,
         solver_kind=solver_kind, inner_iterations=inner_iterations,
-        fused=fused,
     )
-    critical = b.bytes_per_iteration - b.bytes_overlappable_per_iteration
-    one_side = (
-        critical + (1.0 - overlap) * b.bytes_overlappable_per_iteration
-    ) / 2.0
-    t_comm = one_side / link_bytes_per_s
+    t_comm = b.bytes_per_iteration / 2.0 / link_bytes_per_s
     t_lat = (
         b.ppermute_rounds_per_iteration + b.reduction_rounds_per_iteration
     ) * round_latency_s
@@ -255,7 +201,6 @@ def predict_efficiency(
         assumptions={
             "link_bytes_per_s": link_bytes_per_s,
             "round_latency_s": round_latency_s,
-            "overlap": overlap,
             "bytes_per_iteration_send": b.bytes_per_iteration,
             "ppermute_rounds": b.ppermute_rounds_per_iteration,
         },
@@ -268,34 +213,23 @@ def predict_efficiency_2d(
     params: SolverParams,
     compute_s_per_iteration: float,
     *,
+    link0_bytes_per_s: float,
+    round0_latency_s: float,
+    link1_bytes_per_s: float,
+    round1_latency_s: float,
     solver_kind: str = "sync",
     inner_iterations: int = 8,
-    fused: bool = True,
-    link0_bytes_per_s: float = 2.5e10,
-    round0_latency_s: float = 100e-6,
-    link1_bytes_per_s: float = 4.5e10,
-    round1_latency_s: float = 5e-6,
-    overlap: float = 0.0,
 ) -> ScalingPrediction:
-    """Per-axis-priced efficiency for a 2D (hosts, chips) mesh — the
-    DCN-regime model the Schur-outer × sync-inner composition exists for.
+    """Efficiency on a 2D mesh whose two axes may be priced differently
+    (per-axis bandwidth and round latency). Per INNER iteration:
 
-    Mesh axis 0 is the SLOW axis: by default a DCN hop (~25 GB/s effective
-    per host pair, ~100 µs software round latency — both parameterized;
-    the ICI defaults of ``predict_efficiency`` apply to axis 1). Per
-    INNER iteration:
-
-    - ``sync``: axis-0 halo round + axis-1 halo round (+ the warped-ghost
-      rounds on the fused path) + the nested psum/pmax reduction crossing
-      BOTH axes every ``termination_check_interval`` iterations.
-    - ``schur2d``: axis-0 pays (2 halo+interface rounds + 1 reduction
-      round) / T; axis-1 pays one live halo round per inner iteration —
-      slow-axis round count drops ~T×, which is the entire point when
-      round0_latency dominates.
-
-    The ``overlap`` credit applies only to the sync fused path's warp halo
-    (see ``predict_efficiency``); the schur2d inner exchange and all
-    slow-axis rounds are priced fully serialized (conservative).
+    - ``sync``: one axis-0 halo round + one axis-1 halo round (each with a
+      second round for the Sobolev halo) + the nested psum/pmax reduction
+      crossing BOTH axes every ``termination_check_interval`` iterations.
+    - ``schur2d``: axis 0 pays (2 halo+interface rounds + 1 reduction
+      round) / T; axis 1 pays one live halo round per inner iteration —
+      the axis-0 round count drops ~T×, which pays off when
+      ``round0_latency_s`` dominates.
     """
     d = len(shape)
     n0, n1 = mesh_shape
@@ -304,44 +238,30 @@ def predict_efficiency_2d(
     z = shape[2] if d > 2 else 1
     plane0 = y_local * z
     plane1 = x_local * z
-    hx = _stencil_halo(params)
     k_int = max(1, params.termination_check_interval)
 
     if solver_kind == "sync":
-        if fused:
-            b0 = hx * 2 * (d + 1) * plane0 * F32  # warp (d) + warped (1)
-            b1 = hx * 2 * (d + 1) * plane1 * F32
-            ov0 = hx * 2 * d * plane0 * F32
-            ov1 = hx * 2 * d * plane1 * F32
-            rounds0 = rounds1 = 2.0
-        else:
-            b0 = 2 * 2 * d * plane0 * F32
-            b1 = 2 * 2 * d * plane1 * F32
-            ov0 = ov1 = 0.0
-            rounds0 = rounds1 = 1.0
-            if params.sobolev_smoothing:
-                r = params.sobolev_radius
-                b0 += r * 2 * d * plane0 * F32
-                b1 += r * 2 * d * plane1 * F32
-                rounds0 += 1.0
-                rounds1 += 1.0
+        b0 = 2 * 2 * d * plane0 * F32
+        b1 = 2 * 2 * d * plane1 * F32
+        rounds0 = rounds1 = 1.0
+        if params.sobolev_smoothing:
+            r = params.sobolev_radius
+            b0 += r * 2 * d * plane0 * F32
+            b1 += r * 2 * d * plane1 * F32
+            rounds0 += 1.0
+            rounds1 += 1.0
         red0 = red1 = 1.0 / k_int
     elif solver_kind == "schur2d":
         t = inner_iterations
-        cols = 8 if fused else 2
         b0 = (2 + 1) * 2 * d * plane0 * F32 / t
-        b1 = cols * 2 * d * (x_local + 4) * z * F32
-        ov0 = ov1 = 0.0
+        b1 = 2 * 2 * d * (x_local + 4) * z * F32
         rounds0 = 2.0 / t
         rounds1 = 1.0
         red0 = red1 = 1.0 / t
     else:
         raise ValueError(f"unknown 2D solver kind {solver_kind!r}")
 
-    t_comm = (
-        ((b0 - ov0) + (1.0 - overlap) * ov0) / 2.0 / link0_bytes_per_s
-        + ((b1 - ov1) + (1.0 - overlap) * ov1) / 2.0 / link1_bytes_per_s
-    )
+    t_comm = b0 / 2.0 / link0_bytes_per_s + b1 / 2.0 / link1_bytes_per_s
     t_lat = (rounds0 + red0) * round0_latency_s + (
         rounds1 + red1
     ) * round1_latency_s
@@ -359,7 +279,6 @@ def predict_efficiency_2d(
             "round0_latency_s": round0_latency_s,
             "link1_bytes_per_s": link1_bytes_per_s,
             "round1_latency_s": round1_latency_s,
-            "overlap": overlap,
             "slow_axis_rounds_per_iteration": rounds0 + red0,
             "fast_axis_rounds_per_iteration": rounds1 + red1,
         },

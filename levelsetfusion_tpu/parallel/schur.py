@@ -66,31 +66,19 @@ per-iteration warp-halo ppermute + Sobolev-halo ppermute + psum×3 + pmax.
 loop-body jaxprs and asserts the ≥T×/3-ish reduction; telemetry records
 inner/outer iteration counts.
 
-Why this solver is 1D (and what covers pod-scale 2D meshes)
------------------------------------------------------------
+Why this solver is 1D
+---------------------
 
-The Schur reduction exists for the LATENCY-dominated regime: its byte
-savings are secondary (halo traffic is already ≤6% of compute at
-production shard sizes — parallel/scaling.py), but it cuts neighbor-
-exchange ROUNDS per unit of convergence ~T×, which matters when round
-latency is large relative to per-iteration compute: small shards, or a
-mesh axis that crosses a DCN slice boundary (~100 µs rounds vs ICI's
-~µs). On a pod slice the natural composition is therefore
-**Schur along the slowest axis × sync along the fast axis**: e.g. a
-(hosts, chips) mesh runs this solver's outer structure across hosts/DCN
-and the 2D-mesh sync solver (parallel/sharded2d) within the slice, where
-predict_efficiency already puts the sync solver >90% at per-chip blocks
-≥ (32, 256, 128). A full 2D Schur (both cut families reduced) would add
-a corner system coupling the four blocks at each mesh vertex through the
-Killing term's mixed ∂ₓ∂_y divergence coupling; per-axis sequential
-reduction (axis-0 cuts, then axis-1 cuts) preserves the fixed-point
-property below — at a joint fixed point every per-axis δ solves
-(I+aA₂)δ=0 ⇒ 0 — but the transient corner approximation buys nothing
-while both axes ride ICI, so the composition above is the supported
-production structure rather than a speculative 2D variant.
+The Schur reduction pays off where neighbor-exchange LATENCY, not bytes,
+limits the sync solver: it cuts exchange rounds per unit of convergence
+~T×, which matters when a round is long relative to per-iteration compute
+(small shards, or a slow link). Along a second mesh axis
+``parallel/schur2d`` composes this outer structure with sync inner
+iterations. A full 2D Schur (both cut families reduced) would add a corner
+system coupling the four blocks at each mesh vertex through the Killing
+term's mixed ∂ₓ∂_y divergence coupling; it is not implemented.
 
 Reference anchor: BASELINE.json north_star; SURVEY.md §5 long-context row.
-(file:line citations into /root/reference are impossible — empty mount.)
 """
 
 from __future__ import annotations
@@ -105,7 +93,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from levelsetfusion_tpu.models.params import SolverParams
-from levelsetfusion_tpu.models.single_level import SolveResult, SolveTelemetry
+from levelsetfusion_tpu.models.single_level import _axis_max_abs
 from levelsetfusion_tpu.ops import sobolev as sobolev_ops
 from levelsetfusion_tpu.ops.gradient import SmoothingMode
 from levelsetfusion_tpu.parallel.halo import (
@@ -113,42 +101,7 @@ from levelsetfusion_tpu.parallel.halo import (
     pmax_axis,
     psum_axis,
 )
-from levelsetfusion_tpu.parallel.sharded import (
-    _block_gradient,
-    pallas_block_supported,
-    prepare_block_resample,
-    resample_block_ext_cm,
-)
-
-
-def fused_schur_supported(params: SolverParams, canonical, n_local: int) -> bool:
-    """Static gate for the fused gradient+update kernel in the Schur inner
-    loop: the block-local Sobolev (``conv_local_x``) drops the x-halo need
-    to the 2-ghost-row contract the interface reduction is built on."""
-    if not (params.use_pallas_gradient and canonical.ndim == 3):
-        return False
-    from levelsetfusion_tpu.ops.pallas.fused_gradient import fused_supported
-
-    return fused_supported(
-        (n_local + 4, canonical.shape[1], canonical.shape[2]),
-        interpret=params.pallas_interpret,
-        sobolev=params.sobolev_smoothing,
-        x_lo=2,
-        x_len=n_local,
-        conv_local=True,
-        sobolev_radius=params.sobolev_radius or 3,
-    )
-
-def schur_fast_paths(params: SolverParams, canonical, live_halo: int,
-                     num_devices: int) -> tuple:
-    """(use_fused, use_pallas_resample) exactly as
-    ``solve_single_level_schur`` gates them (single source of truth for
-    contract checks — the Schur resample always produces ghost=2 rows)."""
-    n_local = canonical.shape[0] // num_devices
-    lh = min(live_halo, n_local)
-    use_fused = fused_schur_supported(params, canonical, n_local)
-    use_pallas = pallas_block_supported(params, canonical, lh)
-    return use_fused, use_pallas
+from levelsetfusion_tpu.parallel.sharded import _block_gradient
 
 
 # Neighbor-exchange (ppermute) rounds issued per outer step, by construction.
@@ -240,17 +193,6 @@ def solve_single_level_schur(
     t_inner = inner_iterations
     n_outer = -(-params.max_iterations // t_inner)
     num_voxels = float(canonical.size)
-    use_fused, use_pallas = schur_fast_paths(
-        params, canonical, live_halo, nd
-    )
-    taps = ()
-    if use_fused and params.sobolev_smoothing:
-        from levelsetfusion_tpu.ops.pallas.fused_gradient import sobolev_taps
-
-        taps = sobolev_taps(
-            params.sobolev_kernel_size, params.sobolev_strength
-        )
-    x_global = canonical.shape[0]
 
     # Interface coupling strength per warp component (see module docstring).
     gamma = params.rigidity_enforcement_factor
@@ -267,31 +209,11 @@ def solve_single_level_schur(
         live_ext = halo_exchange(
             live_blk, live_halo, axis_name, nd, fill="truncation"
         )
-        prepared = None
-        if use_pallas:
-            prepared = prepare_block_resample(
-                live_ext, params, live_halo, n_local
-            )
         idx = lax.axis_index(axis_name)
-        canon_ext2 = None
-        x_off = None
-        if use_fused:
-            # The fused kernel wants canonical on block + 2 ghost rows for
-            # shape agreement only: ghost-row canonical values never reach an
-            # interior output (conv_local_x zeroes beyond the interior and
-            # the stats mask excludes ghosts), so an edge pad suffices — no
-            # collective.
-            canon_ext2 = jnp.concatenate(
-                [canon_blk[:1], canon_blk, canon_blk[-1:]], axis=0
-            )
-            canon_ext2 = jnp.concatenate(
-                [canon_ext2[:1], canon_ext2, canon_ext2[-1:]], axis=0
-            )
-            x_off = idx * n_local - 2
 
         zeros = jnp.zeros((n_outer,), canon_blk.dtype)
         init = (
-            jnp.moveaxis(warp0_blk, -1, 0) if use_fused else warp0_blk,
+            warp0_blk,
             jnp.zeros((), jnp.int32),  # outer step
             jnp.full((), jnp.inf, canon_blk.dtype),  # last global max update
             jnp.asarray(params.learning_rate, canon_blk.dtype),
@@ -304,102 +226,39 @@ def solve_single_level_schur(
             _, s, max_up, _, _, _, _ = state
             return (s < n_outer) & (max_up >= params.convergence_threshold)
 
-        # Component axis position: the fused path carries the warp
-        # component-major (3, x, y, z) — the layout both Pallas kernels want.
-        x_ax = 1 if use_fused else 0
-
-        def _row(a, sl):
-            return a[:, sl] if use_fused else a[sl]
-
-        from levelsetfusion_tpu.models.single_level import _axis_max_abs
-
         def outer_body(state):
             warp, s, _, rate, prev_e, tel, max_disp = state
 
             # (1) one warp halo exchange; ghosts stay frozen through the
             # inner sweep.
             warp_ext = halo_exchange(
-                warp, 2, axis_name, nd, fill="replicate", axis=x_ax
+                warp, 2, axis_name, nd, fill="replicate"
             )
-            ghosts = (_row(warp_ext, slice(None, 2)),
-                      _row(warp_ext, slice(-2, None)))
+            ghosts = (warp_ext[:2], warp_ext[-2:])
 
             # (2) block-local inner iterations — no collectives.
-            if use_fused:
-                from levelsetfusion_tpu.ops.pallas.fused_gradient import (
-                    fused_gradient_update,
+            def inner(_, carry):
+                w, _, _, md = carry
+                md = jnp.maximum(md, _axis_max_abs(w))
+                # Neighbor ghosts stay frozen (that is the scheme), but
+                # GLOBAL-boundary ghosts are locally computable: refresh
+                # the replicate fill from the current edge row so the
+                # one-sided global-edge forms track the iterate.
+                lo = jnp.where(
+                    idx == 0, jnp.broadcast_to(w[:1], ghosts[0].shape),
+                    ghosts[0],
                 )
-
-                # The kernel reports each updated warp's per-axis max |u|
-                # in its stats; seed with the warp entering the sweep.
-                max_disp = jnp.maximum(
-                    max_disp, _axis_max_abs(warp, use_fused)
+                hi = jnp.where(
+                    idx == nd - 1,
+                    jnp.broadcast_to(w[-1:], ghosts[1].shape),
+                    ghosts[1],
                 )
-
-                def inner(_, carry):
-                    w, _, _, md = carry
-                    w_ext_cm = jnp.concatenate(
-                        [ghosts[0], w, ghosts[1]], axis=1
-                    )
-                    warped_ext = resample_block_ext_cm(
-                        w_ext_cm, live_ext, prepared, params, 2, n_local,
-                        live_halo, axis_name,
-                    )
-                    new_w, stats = fused_gradient_update(
-                        warped_ext,
-                        canon_ext2,
-                        w_ext_cm,
-                        rate,
-                        w_data=params.data_term_weight,
-                        w_smooth=params.smoothing_term_weight,
-                        w_ls=params.level_set_term_weight,
-                        killing=(
-                            params.smoothing_mode is SmoothingMode.KILLING
-                        ),
-                        gamma=params.rigidity_enforcement_factor,
-                        band_union=params.band_union_only,
-                        taps=taps,
-                        interpret=params.pallas_interpret,
-                        x_offset=x_off,
-                        x_global=x_global,
-                        x_lo=2,
-                        x_len=n_local,
-                        conv_local_x=True,
-                    )
-                    energies = (
-                        stats.data_energy,
-                        stats.smoothing_energy,
-                        stats.level_set_energy,
-                    )
-                    md = jnp.maximum(md, stats.max_abs_u)
-                    return (new_w, new_w - w, energies, md)
-            else:
-
-                def inner(_, carry):
-                    w, _, _, md = carry
-                    md = jnp.maximum(md, _axis_max_abs(w, use_fused))
-                    # Neighbor ghosts stay frozen (that is the scheme), but
-                    # GLOBAL-boundary ghosts are locally computable: refresh
-                    # the replicate fill from the current edge row so the
-                    # one-sided global-edge forms track the iterate (and
-                    # match the fused kernel's masked edge forms exactly).
-                    lo = jnp.where(
-                        idx == 0,
-                        jnp.broadcast_to(w[:1], ghosts[0].shape),
-                        ghosts[0],
-                    )
-                    hi = jnp.where(
-                        idx == nd - 1,
-                        jnp.broadcast_to(w[-1:], ghosts[1].shape),
-                        ghosts[1],
-                    )
-                    grad, energies = _block_gradient(
-                        canon_blk, live_ext, w, params, kernel, axis_name,
-                        nd, live_halo, prepared, warp_ghosts=(lo, hi),
-                        local_only=True,
-                    )
-                    direction = -rate * grad
-                    return (w + direction, direction, energies, md)
+                grad, energies = _block_gradient(
+                    canon_blk, live_ext, w, params, kernel, axis_name,
+                    nd, live_halo, warp_ghosts=(lo, hi), local_only=True,
+                )
+                direction = -rate * grad
+                return (w + direction, direction, energies, md)
 
             dir0 = jnp.zeros_like(warp)
             e0 = (jnp.zeros((), canon_blk.dtype),) * 3
@@ -410,8 +269,8 @@ def solve_single_level_schur(
             # (3) interface reduction: exchange edge directions (one
             # ppermute round), solve the per-cut implicit 2×2 system, and
             # replace the edge rows' last explicit update with δ.
-            d_first = _row(direction, slice(None, 1))
-            d_last = _row(direction, slice(-1, None))
+            d_first = direction[:1]
+            d_last = direction[-1:]
             if nd == 1:
                 # No cuts on a mesh-of-1 axis: the interface solve is
                 # bypassed below (idx==0 and idx==nd-1 both hold), so skip
@@ -428,31 +287,24 @@ def solve_single_level_schur(
                 for c in range(d):
                     a = rate * w_s * kappa[c]
                     det = (1.0 + 2.0 * a) ** 2 - a * a
-                    own = d_own[c] if use_fused else d_own[..., c]
-                    nbr = d_nbr[c] if use_fused else d_nbr[..., c]
-                    parts.append(((1.0 + 2.0 * a) * own + a * nbr) / det)
-                return jnp.stack(parts, axis=0 if use_fused else -1)
+                    parts.append(
+                        ((1.0 + 2.0 * a) * d_own[..., c] + a * d_nbr[..., c])
+                        / det
+                    )
+                return jnp.stack(parts, axis=-1)
 
             delta_first = solve2(d_first, nbr_last)
             delta_last = solve2(d_last, nbr_first)
             # Global edges have no cut: keep the explicit update there.
             delta_first = jnp.where(idx == 0, d_first, delta_first)
             delta_last = jnp.where(idx == nd - 1, d_last, delta_last)
-            if use_fused:
-                warp = warp.at[:, :1].add(delta_first - d_first)
-                warp = warp.at[:, -1:].add(delta_last - d_last)
-                direction = direction.at[:, :1].set(delta_first)
-                direction = direction.at[:, -1:].set(delta_last)
-            else:
-                warp = warp.at[:1].add(delta_first - d_first)
-                warp = warp.at[-1:].add(delta_last - d_last)
-                direction = direction.at[:1].set(delta_first)
-                direction = direction.at[-1:].set(delta_last)
+            warp = warp.at[:1].add(delta_first - d_first)
+            warp = warp.at[-1:].add(delta_last - d_last)
+            direction = direction.at[:1].set(delta_first)
+            direction = direction.at[-1:].set(delta_last)
 
             # (4) one fused global reduction: energies + update stats.
-            ulen = jnp.sqrt(
-                jnp.sum(direction * direction, axis=0 if use_fused else -1)
-            )
+            ulen = jnp.sqrt(jnp.sum(direction * direction, axis=-1))
             max_up = pmax_axis(jnp.max(ulen), axis_name, nd)
             mean_up = psum_axis(jnp.sum(ulen), axis_name, nd) / num_voxels
             e_d = psum_axis(e_d, axis_name, nd)
@@ -476,11 +328,8 @@ def solve_single_level_schur(
             cond, outer_body, init
         )
         max_disp = pmax_axis(
-            jnp.maximum(max_disp, _axis_max_abs(warp, use_fused)),
-            axis_name, nd,
+            jnp.maximum(max_disp, _axis_max_abs(warp)), axis_name, nd
         )
-        if use_fused:
-            warp = jnp.moveaxis(warp, 0, -1)
         return warp, s, max_up < params.convergence_threshold, tel, max_disp
 
     spec = P(axis_name)

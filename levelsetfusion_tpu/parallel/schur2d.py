@@ -1,29 +1,26 @@
-"""Pod production composition: Schur-outer × sync-inner on a 2D
-(hosts, chips) mesh — the structure ``parallel/schur.py``'s docstring names
-as the supported way to run the distributed warp solve when one mesh axis
-crosses DCN (VERDICT r4 missing #1; BASELINE north_star "across hosts").
+"""Schur-outer × sync-inner warp solve on a 2D mesh — the 1D Schur
+solver's outer structure (``parallel/schur.py``) along mesh axis 0,
+composed with sync inner iterations along mesh axis 1.
 
 Structure
 ---------
 
 The volume shards over BOTH spatial axes 0 and 1 (true voxel blocks, as
-``parallel/sharded2d``). Mesh axis 0 is the SLOW axis (hosts — each
-exchange/reduction round across it costs DCN latency, ~100 µs, vs ICI's
-~µs); mesh axis 1 is the FAST axis (chips within a host/slice). One
-**outer step** is:
+``parallel/sharded2d``). Mesh axis 0 is the axis whose exchange rounds the
+composition economises (the "slow" axis); mesh axis 1 runs the ordinary
+sync structure. One **outer step** is:
 
-1. **Axis-0 warp halo exchange** (1 slow-axis ``ppermute`` round): each
-   block receives 2 frozen ghost x-rows per side — the only place
-   slow-axis neighbor state enters the sweep.
+1. **Axis-0 warp halo exchange** (1 axis-0 ``ppermute`` round): each
+   block receives 2 frozen ghost x-rows per side — the only place axis-0
+   neighbor state enters the sweep.
 2. **T sync inner iterations**: plain gradient descent on the energy
    restricted to the block row, with the x ghosts *frozen* (additive
-   Schwarz across hosts) but the y ghosts exchanged LIVE every iteration
-   (1 fast-axis ``ppermute`` round each — the ordinary sync structure of
-   ``parallel/sharded2d`` along the axis where rounds are cheap). The
-   Sobolev filter runs block-locally in x (zero-padded at x block edges —
-   exact at the fixed point, as the 1D Schur solver) and globally in y
-   (zero-filled halo exchange, exact).
-3. **Axis-0 interface reduction** (1 slow-axis ``ppermute`` round): the
+   Schwarz along axis 0) but the y ghosts exchanged LIVE every iteration
+   (1 axis-1 ``ppermute`` round each — the ordinary sync structure of
+   ``parallel/sharded2d``). The Sobolev filter runs block-locally in x
+   (zero-padded at x block edges — exact at the fixed point, as the 1D
+   Schur solver) and globally in y (zero-filled halo exchange, exact).
+3. **Axis-0 interface reduction** (1 axis-0 ``ppermute`` round): the
    per-cut implicit 2×2 system of ``parallel/schur.py`` — the closed-form
    Schur reduction of the smoothing operator's cut coupling onto the two
    rows straddling each x cut:
@@ -43,26 +40,16 @@ refreshed at global edges), any linear filter of zero is zero, and
 the synchronous 2D solver's stationary points. ``tests/test_schur2d.py``
 asserts convergence to the sync-2D fixed point at matched termination.
 
-Collectives per outer step (the reason this exists):
+Collectives per outer step:
 
-    slow axis (DCN):  2 ppermute rounds + 1 reduction round, amortized /T
-    fast axis (ICI):  T ppermute rounds (one per inner iteration)
+    axis 0:  2 ppermute rounds + 1 reduction round, amortized /T
+    axis 1:  T ppermute rounds (one per inner iteration)
 
-vs the sync 2D solver's T slow-axis ppermute rounds + T reductions for the
-same T iterations — ~T× fewer DCN round-trips per unit of convergence.
-
-The inner loop runs the fused stencil/Sobolev/update Pallas kernel per
-shard when the shape supports it (``schur2d_fast_paths``): ``conv_local_x``
-keeps the Sobolev x-conv block-local (the 2-ghost-row Schur contract)
-while the kernel's y window consumes the live 8-col y exchange with the
-sync edge conventions — the same kernel the sync solvers run, composed
-with the Schur outer structure. Golden jnp assembly otherwise;
-fused-vs-jnp parity is asserted by tests/test_schur2d.py.
-``parallel/scaling.py::predict_efficiency_2d`` prices both structures with
-per-axis link parameters; BASELINE.md records the DCN-regime table.
+vs the sync 2D solver's T axis-0 ppermute rounds + T reductions for the
+same T iterations. ``parallel/scaling.py::predict_efficiency_2d`` prices
+both structures with per-axis link parameters.
 
 Reference anchor: BASELINE.json north_star; SURVEY.md §5 long-context row.
-(file:line citations into /root/reference are impossible — empty mount.)
 """
 
 from __future__ import annotations
@@ -91,69 +78,11 @@ from levelsetfusion_tpu.parallel.halo import (
     second_diff,
 )
 from levelsetfusion_tpu.parallel.schur import SchurResult, SchurTelemetry
-from levelsetfusion_tpu.parallel.sharded import prepare_block_resample
 from levelsetfusion_tpu.parallel.sharded2d import (
     _band_mask,
     _crop,
     _replicate_global_ghosts,
-    pallas_block2d_supported,
 )
-
-
-def schur2d_fast_paths(params: SolverParams, canonical, live_halo: int,
-                       nd0: int, nd1: int) -> tuple:
-    """(use_fused, use_pallas_resample) as ``solve_single_level_schur2d``
-    gates them.
-
-    The fused inner-loop kernel composes ``conv_local_x`` (block-local
-    Sobolev in x — the Schur 2-ghost-row contract) with the y-tiled
-    ``y_lo``/``y_len`` window machinery (sync semantics along the fast
-    axis, ghosts exchanged live every inner iteration). The per-shard
-    Pallas resample needs the x clamp window + 2 ghost rows and a
-    sublane-aligned y extent."""
-    from levelsetfusion_tpu.ops.pallas.resample import k3
-
-    n0 = canonical.shape[0] // nd0
-    n1 = canonical.shape[1] // nd1
-    lh = min(live_halo, n0, n1)
-    use_fused = False
-    if params.use_pallas_gradient and canonical.ndim == 3 and lh >= 8:
-        from levelsetfusion_tpu.ops.pallas.fused_gradient import (
-            fused_supported,
-        )
-
-        use_fused = fused_supported(
-            (n0 + 4, n1 + 16, canonical.shape[2]),
-            interpret=params.pallas_interpret,
-            sobolev=params.sobolev_smoothing,
-            x_lo=2,
-            x_len=n0,
-            y_lo=8,
-            y_len=n1,
-            conv_local=True,
-            sobolev_radius=params.sobolev_radius or 3,
-        )
-    if use_fused:
-        from levelsetfusion_tpu.ops.pallas.resample import (
-            pallas_resample_supported,
-        )
-
-        kx, ky = k3(params.pallas_max_displacement)[:2]
-        # x side: clamp window + the 2-ghost-row Schur contract + 1
-        # trilinear read. y side: the kernel consumes warped ghost cols 5
-        # deep (the stencil+filter reach into the 8-col window), each
-        # reading up to ky+1 past the block edge.
-        use_pallas = (
-            params.use_pallas_resample
-            and lh >= max(kx + 3, ky + 6)
-            and (n1 + 2 * lh) % 8 == 0
-            and pallas_resample_supported(
-                canonical, params.pallas_interpret
-            )
-        )
-    else:
-        use_pallas = pallas_block2d_supported(params, canonical, lh, n1)
-    return use_fused, use_pallas
 
 
 @partial(
@@ -214,17 +143,6 @@ def solve_single_level_schur2d(
     t_inner = inner_iterations
     n_outer = -(-params.max_iterations // t_inner)
     num_voxels = float(canonical.size)
-    use_fused, use_pallas = schur2d_fast_paths(
-        params, canonical, live_halo, nd0, nd1
-    )
-    taps = ()
-    if use_fused and params.sobolev_smoothing:
-        from levelsetfusion_tpu.ops.pallas.fused_gradient import sobolev_taps
-
-        taps = sobolev_taps(
-            params.sobolev_kernel_size, params.sobolev_strength
-        )
-    x_gl, y_gl = canonical.shape[0], canonical.shape[1]
 
     # Interface coupling per warp component (see parallel/schur.py): the
     # cuts are along spatial axis 0, so the Killing operator's ∇(∇·u) adds
@@ -253,112 +171,12 @@ def solve_single_level_schur2d(
         live_ext = halo_exchange(
             live_ext, live_halo, an1, nd1, fill="truncation", axis=1
         )
-        prepared = None
-        if use_pallas:
-            prepared = prepare_block_resample(
-                live_ext, params, live_halo, n0, 2
-            )
-        canon_ext2 = None
-        x_off = y_off = None
-        if use_fused:
-            # Canonical for the fused kernel: x ghost rows never reach an
-            # interior output (conv_local_x + the edge masks), so an edge
-            # pad suffices in x — no slow-axis collective; the y ghosts
-            # (8 cols) cross real cuts and exchange once per solve.
-            ce = jnp.concatenate(
-                [canon_blk[:1], canon_blk, canon_blk[-1:]], axis=0
-            )
-            ce = jnp.concatenate([ce[:1], ce, ce[-1:]], axis=0)
-            canon_ext2 = halo_exchange(
-                ce, 8, an1, nd1, fill="truncation", axis=1
-            )
-            x_off = idx0 * n0 - 2
-            y_off = idx1 * n1 - 8
-
-        def _resample_fused(w_ext_cm):
-            """Warped live on the (n0+4, n1+16) fused-kernel window from a
-            component-major warp carrying 2 frozen x ghost rows and 8 live
-            y ghost cols."""
-            m0, m1 = n0 + 4, n1 + 16
-            if prepared is not None:
-                from levelsetfusion_tpu.ops.pallas.resample import (
-                    k3,
-                    pick_y_block,
-                    warp_field_pallas_prepared,
-                )
-
-                k_full = params.pallas_max_displacement
-                if isinstance(k_full, list):
-                    k_full = tuple(k_full)
-                kx = k3(k_full)[0]
-                stacked, flags, xe = prepared
-                hd = live_halo - 8
-                wk = jnp.pad(
-                    w_ext_cm,
-                    ((0, 0), (0, xe - m0),
-                     (hd, stacked.shape[2] - w_ext_cm.shape[2] - hd),
-                     (0, 0)),
-                )
-                out = warp_field_pallas_prepared(
-                    stacked, wk, k_full,
-                    y_block=pick_y_block(wk.shape[1:]),
-                    interpret=params.pallas_interpret,
-                    skip_flags=flags, x_start=kx, component_major=True,
-                )
-                return out[:m0, hd : hd + m1]
-            shape_ext = (m0, m1) + canon_blk.shape[2:]
-            i0 = lax.broadcasted_iota(jnp.int32, shape_ext, 0).astype(
-                w_ext_cm.dtype
-            )
-            i1 = lax.broadcasted_iota(jnp.int32, shape_ext, 1).astype(
-                w_ext_cm.dtype
-            )
-            coords = [
-                i0 + (live_halo - 2) + w_ext_cm[0],
-                i1 + (live_halo - 8) + w_ext_cm[1],
-            ]
-            for ax in range(2, d):
-                ident = lax.broadcasted_iota(
-                    jnp.int32, shape_ext, ax
-                ).astype(w_ext_cm.dtype)
-                coords.append(ident + w_ext_cm[ax])
-            return sample_at(live_ext, jnp.stack(coords, axis=-1))
-
-        def fused_inner_step(w_cm, x_ghosts_cm, rate):
-            """One fused inner iteration: ONE live fast-axis exchange
-            (8 y ghost cols), frozen x ghosts, then resample + one kernel
-            call (conv_local_x Sobolev in x, sync y-window semantics)."""
-            from levelsetfusion_tpu.ops.pallas.fused_gradient import (
-                fused_gradient_update,
-            )
-
-            w_x = jnp.concatenate(
-                [x_ghosts_cm[0], w_cm, x_ghosts_cm[1]], axis=1
-            )
-            w_ext = halo_exchange(
-                w_x, 8, an1, nd1, fill="replicate", axis=2
-            )
-            warped_ext = _resample_fused(w_ext)
-            return fused_gradient_update(
-                warped_ext, canon_ext2, w_ext, rate,
-                w_data=params.data_term_weight,
-                w_smooth=params.smoothing_term_weight,
-                w_ls=params.level_set_term_weight,
-                killing=params.smoothing_mode is SmoothingMode.KILLING,
-                gamma=params.rigidity_enforcement_factor,
-                band_union=params.band_union_only,
-                taps=taps,
-                interpret=params.pallas_interpret,
-                x_offset=x_off, x_global=x_gl, x_lo=2, x_len=n0,
-                y_offset=y_off, y_global=y_gl, y_lo=8, y_len=n1,
-                conv_local_x=True,
-            )
 
         def gradient(warp, x_ghosts):
             """Energy gradient on the block: axis-0 stencils use the FROZEN
             x ghosts (with the global-edge replicate refreshed from the
-            live iterate, matching the fused/edge conventions), axis-1
-            stencils exchange live y ghosts — one fast-axis round."""
+            live iterate, matching the single-device edge conventions),
+            axis-1 stencils exchange live y ghosts — one axis-1 round."""
             lo2, hi2 = x_ghosts
             lo2 = jnp.where(
                 idx0 == 0, jnp.broadcast_to(warp[:1], lo2.shape), lo2
@@ -369,64 +187,32 @@ def solve_single_level_schur2d(
                 hi2,
             )
             warp_x = jnp.concatenate([lo2, warp, hi2], axis=0)
-            # The ONE live fast-axis exchange of the iteration (the x-ghost
+            # The ONE live axis-1 exchange of the iteration (the x-ghost
             # rows ride along so corners stay consistent).
             warp_ext = halo_exchange(
                 warp_x, 2, an1, nd1, fill="replicate", axis=1
             )
 
             # ---- warped live on block + 2 ghosts per axis ----------------
-            if prepared is not None:
-                from levelsetfusion_tpu.ops.pallas.resample import (
-                    k3,
-                    pick_y_block,
-                    warp_field_pallas_prepared,
-                )
-
-                k_full = params.pallas_max_displacement
-                if isinstance(k_full, list):
-                    k_full = tuple(k_full)
-                kx = k3(k_full)[0]
-                stacked, flags, xe = prepared
-                hd = live_halo - 2
-                warp_cm = jnp.moveaxis(warp_ext, -1, 0)
-                warp_cm = jnp.pad(
-                    warp_cm,
-                    ((0, 0), (0, xe - (n0 + 4)),
-                     (hd, stacked.shape[2] - warp_cm.shape[2] - hd),
-                     (0, 0)),
-                )
-                we_full = warp_field_pallas_prepared(
-                    stacked,
-                    warp_cm,
-                    k_full,
-                    y_block=pick_y_block(warp_cm.shape[1:]),
-                    interpret=params.pallas_interpret,
-                    skip_flags=flags,
-                    x_start=kx,
-                    component_major=True,
-                )
-                we = we_full[: n0 + 4, hd : hd + n1 + 4]
-            else:
-                shape_ext = (n0 + 4, n1 + 4) + canon_blk.shape[2:]
-                pos0 = (
-                    start0 - 2
-                    + lax.broadcasted_iota(jnp.int32, shape_ext, 0)
+            shape_ext = (n0 + 4, n1 + 4) + canon_blk.shape[2:]
+            pos0 = (
+                start0 - 2
+                + lax.broadcasted_iota(jnp.int32, shape_ext, 0)
+            ).astype(warp.dtype)
+            pos1 = (
+                start1 - 2
+                + lax.broadcasted_iota(jnp.int32, shape_ext, 1)
+            ).astype(warp.dtype)
+            coords = [
+                pos0 - (start0 - live_halo) + warp_ext[..., 0],
+                pos1 - (start1 - live_halo) + warp_ext[..., 1],
+            ]
+            for ax in range(2, d):
+                ident = lax.broadcasted_iota(
+                    jnp.int32, shape_ext, ax
                 ).astype(warp.dtype)
-                pos1 = (
-                    start1 - 2
-                    + lax.broadcasted_iota(jnp.int32, shape_ext, 1)
-                ).astype(warp.dtype)
-                coords = [
-                    pos0 - (start0 - live_halo) + warp_ext[..., 0],
-                    pos1 - (start1 - live_halo) + warp_ext[..., 1],
-                ]
-                for ax in range(2, d):
-                    ident = lax.broadcasted_iota(
-                        jnp.int32, shape_ext, ax
-                    ).astype(warp.dtype)
-                    coords.append(ident + warp_ext[..., ax])
-                we = sample_at(live_ext, jnp.stack(coords, axis=-1))
+                coords.append(ident + warp_ext[..., ax])
+            we = sample_at(live_ext, jnp.stack(coords, axis=-1))
             we = _replicate_global_ghosts(we, 2, an0, nd0, axis=0)
             we = _replicate_global_ghosts(we, 2, an1, nd1, axis=1)
             warped = _crop(we, 2, 2)
@@ -562,8 +348,8 @@ def solve_single_level_schur2d(
                     e_terms = jnp.where(mask, (norm - 1.0) ** 2, 0.0)
                 else:
                     e_terms = (norm - 1.0) ** 2
-                g_ls = scale[..., None] * jnp.einsum(
-                    "...ij,...j->...i", hess, g
+                g_ls = scale[..., None] * jnp.sum(
+                    hess * g[..., None, :], axis=-1
                 )
                 total = total + params.level_set_term_weight * g_ls
                 e_ls = params.level_set_term_weight * 0.5 * jnp.sum(e_terms)
@@ -582,11 +368,8 @@ def solve_single_level_schur2d(
             return total, (e_data, e_smooth, e_ls)
 
         zeros = jnp.zeros((n_outer,), canon_blk.dtype)
-        warp0 = (
-            jnp.moveaxis(warp0_blk, -1, 0) if use_fused else warp0_blk
-        )
         init = (
-            warp0,
+            warp0_blk,
             jnp.zeros((), jnp.int32),
             jnp.full((), jnp.inf, canon_blk.dtype),
             jnp.asarray(params.learning_rate, canon_blk.dtype),
@@ -594,12 +377,6 @@ def solve_single_level_schur2d(
             SchurTelemetry(zeros, zeros, zeros, zeros, zeros),
             jnp.zeros((d,), canon_blk.dtype),
         )
-        # Component axis position: the fused path carries the warp
-        # component-major (3, x, y, z) — the layout both kernels want.
-        x_ax = 1 if use_fused else 0
-
-        def _row(a, sl):
-            return a[:, sl] if use_fused else a[sl]
 
         def cond(state):
             _, s, max_up, _, _, _, _ = state
@@ -608,38 +385,18 @@ def solve_single_level_schur2d(
         def outer_body(state):
             warp, s, _, rate, prev_e, tel, max_disp = state
 
-            # (1) ONE slow-axis round: the frozen x ghost rows.
-            warp_x = halo_exchange(
-                warp, 2, an0, nd0, fill="replicate", axis=x_ax
-            )
-            x_ghosts = (_row(warp_x, slice(None, 2)),
-                        _row(warp_x, slice(-2, None)))
+            # (1) ONE axis-0 round: the frozen x ghost rows.
+            warp_x = halo_exchange(warp, 2, an0, nd0, fill="replicate")
+            x_ghosts = (warp_x[:2], warp_x[-2:])
 
-            # (2) sync inner sweep: one fast-axis round per iteration,
-            # zero slow-axis collectives.
-            if use_fused:
-                max_disp = jnp.maximum(
-                    max_disp, _axis_max_abs(warp, use_fused)
-                )
-
-                def inner(_, carry):
-                    w, _, _, md = carry
-                    new_w, stats = fused_inner_step(w, x_ghosts, rate)
-                    energies = (
-                        stats.data_energy,
-                        stats.smoothing_energy,
-                        stats.level_set_energy,
-                    )
-                    md = jnp.maximum(md, stats.max_abs_u)
-                    return (new_w, new_w - w, energies, md)
-            else:
-
-                def inner(_, carry):
-                    w, _, _, md = carry
-                    md = jnp.maximum(md, _axis_max_abs(w, False))
-                    grad, energies = gradient(w, x_ghosts)
-                    direction = -rate * grad
-                    return (w + direction, direction, energies, md)
+            # (2) sync inner sweep: one axis-1 round per iteration,
+            # zero axis-0 collectives.
+            def inner(_, carry):
+                w, _, _, md = carry
+                md = jnp.maximum(md, _axis_max_abs(w))
+                grad, energies = gradient(w, x_ghosts)
+                direction = -rate * grad
+                return (w + direction, direction, energies, md)
 
             dir0 = jnp.zeros_like(warp)
             e0 = (jnp.zeros((), canon_blk.dtype),) * 3
@@ -647,10 +404,10 @@ def solve_single_level_schur2d(
                 0, t_inner, inner, (warp, dir0, e0, max_disp)
             )
 
-            # (3) slow-axis interface reduction (1 round): closed-form
+            # (3) axis-0 interface reduction (1 round): closed-form
             # 2×2 solve per x cut (see parallel/schur.py).
-            d_first = _row(direction, slice(None, 1))
-            d_last = _row(direction, slice(-1, None))
+            d_first = direction[:1]
+            d_last = direction[-1:]
             if nd0 == 1:
                 nbr_last, nbr_first = d_last, d_first
             else:
@@ -662,30 +419,23 @@ def solve_single_level_schur2d(
                 for c in range(d):
                     a = rate * w_s * kappa[c]
                     det = (1.0 + 2.0 * a) ** 2 - a * a
-                    own = d_own[c] if use_fused else d_own[..., c]
-                    nbr = d_nbr[c] if use_fused else d_nbr[..., c]
-                    parts.append(((1.0 + 2.0 * a) * own + a * nbr) / det)
-                return jnp.stack(parts, axis=0 if use_fused else -1)
+                    parts.append(
+                        ((1.0 + 2.0 * a) * d_own[..., c] + a * d_nbr[..., c])
+                        / det
+                    )
+                return jnp.stack(parts, axis=-1)
 
             delta_first = solve2(d_first, nbr_last)
             delta_last = solve2(d_last, nbr_first)
             delta_first = jnp.where(idx0 == 0, d_first, delta_first)
             delta_last = jnp.where(idx0 == nd0 - 1, d_last, delta_last)
-            if use_fused:
-                warp = warp.at[:, :1].add(delta_first - d_first)
-                warp = warp.at[:, -1:].add(delta_last - d_last)
-                direction = direction.at[:, :1].set(delta_first)
-                direction = direction.at[:, -1:].set(delta_last)
-            else:
-                warp = warp.at[:1].add(delta_first - d_first)
-                warp = warp.at[-1:].add(delta_last - d_last)
-                direction = direction.at[:1].set(delta_first)
-                direction = direction.at[-1:].set(delta_last)
+            warp = warp.at[:1].add(delta_first - d_first)
+            warp = warp.at[-1:].add(delta_last - d_last)
+            direction = direction.at[:1].set(delta_first)
+            direction = direction.at[-1:].set(delta_last)
 
             # (4) ONE fused global reduction over both axes.
-            ulen = jnp.sqrt(
-                jnp.sum(direction * direction, axis=0 if use_fused else -1)
-            )
+            ulen = jnp.sqrt(jnp.sum(direction * direction, axis=-1))
             max_up = pmax_axis(
                 pmax_axis(jnp.max(ulen), an0, nd0), an1, nd1
             )
@@ -717,13 +467,11 @@ def solve_single_level_schur2d(
         )
         max_disp = pmax_axis(
             pmax_axis(
-                jnp.maximum(max_disp, _axis_max_abs(warp, use_fused)),
+                jnp.maximum(max_disp, _axis_max_abs(warp)),
                 an0, nd0,
             ),
             an1, nd1,
         )
-        if use_fused:
-            warp = jnp.moveaxis(warp, 0, -1)
         return warp, s, max_up < params.convergence_threshold, tel, max_disp
 
     spec = P(an0, an1)

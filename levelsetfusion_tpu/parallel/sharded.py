@@ -38,7 +38,11 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from levelsetfusion_tpu.models.params import SolverParams
-from levelsetfusion_tpu.models.single_level import SolveResult, SolveTelemetry
+from levelsetfusion_tpu.models.single_level import (
+    SolveResult,
+    SolveTelemetry,
+    _axis_max_abs,
+)
 from levelsetfusion_tpu.ops import sobolev as sobolev_ops
 from levelsetfusion_tpu.ops.derivatives import _diff_axis, _second_diff_axis
 from levelsetfusion_tpu.ops.gradient import SmoothingMode
@@ -83,7 +87,6 @@ def _block_gradient(
     axis_name: str,
     nd: int,
     live_halo: int,
-    prepared_live=None,
     warp_ghosts=None,
     local_only=False,
     reduce_energies=True,
@@ -112,52 +115,19 @@ def _block_gradient(
     else:
         warp_ext = halo_exchange(warp, 2, axis_name, nd, fill="replicate")
     m = n + 4
-    if prepared_live is not None:
-        # Per-shard Pallas resample from the haloed live copy (see
-        # solve_single_level_sharded): kernel output row i = field row
-        # i + ux, field starts at ext row live_halo - 2 - K, so warped_ext
-        # row j sits at kernel row j + K. Same ±K clamp semantics as the
-        # single-device Pallas path.
-        from levelsetfusion_tpu.ops.pallas.resample import (
-            pick_y_block,
-            warp_field_pallas_prepared,
+    shape_ext = (m,) + canon_blk.shape[1:]
+    pos0 = (
+        start
+        - 2
+        + lax.broadcasted_iota(jnp.int32, shape_ext, 0)
+    ).astype(warp.dtype)
+    coords = [pos0 - (start - live_halo) + warp_ext[..., 0]]
+    for ax in range(1, d):
+        ident = lax.broadcasted_iota(jnp.int32, shape_ext, ax).astype(
+            warp.dtype
         )
-
-        from levelsetfusion_tpu.ops.pallas.resample import k3
-
-        k_full = params.pallas_max_displacement
-        if isinstance(k_full, list):
-            k_full = tuple(k_full)
-        kx = k3(k_full)[0]
-        # (prepare_field result, skip flags or None, kernel output x extent)
-        stacked, flags, xe = prepared_live
-        pads = [(0, xe - m)] + [(0, 0)] * (warp_ext.ndim - 1)
-        pads[1] = (0, stacked.shape[2] - warp_ext.shape[1])
-        warp_k = jnp.pad(warp_ext, pads)
-        out = warp_field_pallas_prepared(
-            stacked,
-            warp_k,
-            k_full,
-            y_block=pick_y_block(warp_k.shape[:-1]),
-            interpret=params.pallas_interpret,
-            skip_flags=flags,
-            x_start=kx,  # output row j samples field row j + Kx + ux
-        )
-        warped_ext = out[:m, : warp_ext.shape[1]]
-    else:
-        shape_ext = (m,) + canon_blk.shape[1:]
-        pos0 = (
-            start
-            - 2
-            + lax.broadcasted_iota(jnp.int32, shape_ext, 0)
-        ).astype(warp.dtype)
-        coords = [pos0 - (start - live_halo) + warp_ext[..., 0]]
-        for ax in range(1, d):
-            ident = lax.broadcasted_iota(jnp.int32, shape_ext, ax).astype(
-                warp.dtype
-            )
-            coords.append(ident + warp_ext[..., ax])
-        warped_ext = sample_at(live_ext, jnp.stack(coords, axis=-1))
+        coords.append(ident + warp_ext[..., ax])
+    warped_ext = sample_at(live_ext, jnp.stack(coords, axis=-1))
     warped_ext = _replicate_global_ghosts(warped_ext, 2, axis_name, nd)
     warped = warped_ext[2:-2]
 
@@ -233,7 +203,7 @@ def _block_gradient(
             e_terms = jnp.where(mask, (norm - 1.0) ** 2, 0.0)
         else:
             e_terms = (norm - 1.0) ** 2
-        g_ls = scale[..., None] * jnp.einsum("...ij,...j->...i", hess, g)
+        g_ls = scale[..., None] * jnp.sum(hess * g[..., None, :], axis=-1)
         total = total + params.level_set_term_weight * g_ls
         e_ls = params.level_set_term_weight * 0.5 * jnp.sum(e_terms)
     else:
@@ -260,9 +230,7 @@ def _block_gradient(
     return total, energies
 
 
-@partial(
-    jax.jit, static_argnames=("mesh", "axis_name", "live_halo", "params")
-)
+@partial(jax.jit, static_argnames=("mesh", "axis_name", "live_halo"))
 def warp_field_sharded(
     live: jnp.ndarray,
     warp: jnp.ndarray,
@@ -270,17 +238,13 @@ def warp_field_sharded(
     mesh: Mesh,
     axis_name: str = "x",
     live_halo: int = 8,
-    params: SolverParams | None = None,
 ) -> jnp.ndarray:
     """Resample ``live`` at ``x + warp(x)`` with both arrays voxel-block
     sharded along axis 0 — the fusion step's gather, done with one explicit
     halo exchange instead of a partitioner-chosen all-gather.
 
     Same contract as the sharded solver: per-voxel axis-0 displacements
-    beyond ``live_halo`` read the +1 truncation fill. When ``params``
-    enables the Pallas resample (and the shape supports it), the gather
-    runs the per-shard kernel — at config-5 shard scale the XLA gather
-    costs seconds per frame.
+    beyond ``live_halo`` read the +1 truncation fill.
     """
     nd = mesh.shape[axis_name]
     if live.shape[0] % nd:
@@ -290,22 +254,11 @@ def warp_field_sharded(
     n_local = live.shape[0] // nd
     lh = min(live_halo, n_local)
     d = live.ndim
-    use_pallas = params is not None and pallas_block_supported(
-        params, live, lh, ghost=0
-    )
 
     def run(live_blk, warp_blk):
         live_ext = halo_exchange(
             live_blk, lh, axis_name, nd, fill="truncation"
         )
-        if use_pallas:
-            prepared = prepare_block_resample(
-                live_ext, params, lh, n_local, ghost=0
-            )
-            return resample_block_ext_cm(
-                jnp.moveaxis(warp_blk, -1, 0), live_ext, prepared, params,
-                0, n_local, lh, axis_name,
-            )
         shape = live_blk.shape
         # Coordinates in the extended frame: local row i sits at ext row
         # i + lh; global out-of-bounds beyond the halo hits sample_at's fill.
@@ -327,188 +280,6 @@ def warp_field_sharded(
         check_vma=False,
     )
     return fn(live, warp)
-
-
-def pallas_block_supported(params: SolverParams, canonical, live_halo: int,
-                           ghost: int = 2) -> bool:
-    """Static gate for the per-shard Pallas resample fast path.
-
-    ``ghost``: resampled ghost rows needed around the block (2 for the jnp
-    stencil path, the full stencil+filter halo for the fused-kernel path) —
-    the live halo must cover ghost + K + 1 rows.
-    """
-    from levelsetfusion_tpu.ops.pallas.resample import (
-        k3,
-        pallas_resample_supported,
-    )
-
-    kx = k3(params.pallas_max_displacement)[0]
-    return (
-        params.use_pallas_resample
-        and canonical.ndim == 3
-        and live_halo >= kx + ghost + 1
-        and pallas_resample_supported(canonical, params.pallas_interpret)
-    )
-
-
-def fused_block_supported(params: SolverParams, canonical, n_local: int) -> bool:
-    """Static gate for the per-shard fused gradient+update kernel."""
-    if not (params.use_pallas_gradient and canonical.ndim == 3):
-        return False
-    from levelsetfusion_tpu.ops.pallas.fused_gradient import fused_supported
-
-    hx = params.stencil_halo
-    shape = (n_local + 2 * hx, canonical.shape[1], canonical.shape[2])
-    return fused_supported(
-        shape,
-        interpret=params.pallas_interpret,
-        sobolev=params.sobolev_smoothing,
-        x_lo=hx,
-        x_len=n_local,
-        sobolev_radius=params.sobolev_radius or 3,
-    )
-
-
-def block_fast_paths(params: SolverParams, canonical, live_halo: int,
-                     num_devices: int) -> tuple:
-    """(use_fused, use_pallas_resample) exactly as
-    ``solve_single_level_sharded`` gates them — the single source of truth
-    for callers (fusion's displacement-contract check) that must know
-    whether the ±K-clamped per-shard resample actually engaged (ADVICE r4:
-    deriving k_used from the whole-volume gate misattributed clamps)."""
-    n_local = canonical.shape[0] // num_devices
-    lh = min(live_halo, n_local)
-    use_fused = fused_block_supported(params, canonical, n_local)
-    # The fused path resamples the INTERIOR only (ghost=0) and receives its
-    # warped ghost rows from the neighbors' interiors (one scalar-channel
-    # exchange), so the live halo only needs to cover the clamp window —
-    # not clamp + stencil halo (the round-4 gate).
-    ghost = 0 if use_fused else 2
-    use_pallas = pallas_block_supported(params, canonical, lh, ghost)
-    return use_fused, use_pallas
-
-
-def pallas_prep_extents(params: SolverParams, n_local: int, ghost: int = 2):
-    """(kk, xe_raw, pallas_xe, pallas_field_ext) for the per-shard kernel.
-
-    Kernel output extent: the m = n_local + 2·ghost kept rows rounded up to a
-    chunkable multiple of 8 (output row j samples field row j + Kx + ux via
-    x_start, so the field slice needs Kx rows before and Kx+1 after the
-    output window). ``kk`` is the X clamp — the only axis entering the
-    sharded extent math; y/z clamps ride through to the resample untouched.
-    """
-    from levelsetfusion_tpu.ops.pallas.resample import k3
-
-    kk = k3(params.pallas_max_displacement)[0]
-    m = n_local + 2 * ghost
-    xe_raw = m + 2 * kk + 1
-    pallas_xe = ((m + 7) // 8) * 8
-    pallas_field_ext = max(xe_raw, pallas_xe + kk)
-    return kk, xe_raw, pallas_xe, pallas_field_ext
-
-
-def prepare_block_resample(live_ext, params: SolverParams, live_halo: int,
-                           n_local: int, ghost: int = 2):
-    """Per-shard ``prepare_field`` + skip flags from the haloed live block
-    (loop-invariant; called once per solve inside ``shard_map``)."""
-    from levelsetfusion_tpu.ops.interpolation import TRUNCATION_FILL
-    from levelsetfusion_tpu.ops.pallas.resample import (
-        compute_skip_flags,
-        pick_y_block,
-        prepare_field,
-    )
-
-    kk, xe_raw, pallas_xe, pallas_field_ext = pallas_prep_extents(
-        params, n_local, ghost
-    )
-    field_x = lax.dynamic_slice_in_dim(
-        live_ext, live_halo - ghost - kk, xe_raw, axis=0
-    )
-    # Pad the y extent up to a 64/32-multiple when the waste is small:
-    # the resample kernel's y_block falls from 64 to 8 on non-aligned
-    # extents (pick_y_block), which measured +91% per-iteration cost on
-    # the 2D-mesh solvers whose two-axis live halo makes y = n1 + 2·lh
-    # (e.g. 528 → pad 48 cols, 9% extra compute, y_block 64). Trailing
-    # fill columns resample to garbage and are cropped by every caller;
-    # small extents where alignment would cost >25% extra stay unpadded.
-    y_have = field_x.shape[1]
-    y_pad = 0
-    for align in (64, 32):
-        p = (-y_have) % align
-        if p == 0:
-            break
-        if p <= y_have // 4:
-            y_pad = p
-            break
-    field_x = jnp.pad(
-        field_x,
-        ((0, pallas_field_ext - xe_raw), (0, y_pad), (0, 0)),
-        constant_values=TRUNCATION_FILL,
-    )
-    k_full = params.pallas_max_displacement
-    if isinstance(k_full, list):
-        k_full = tuple(k_full)
-    stacked = prepare_field(field_x, k_full)
-    flags = compute_skip_flags(
-        stacked, pallas_xe, pick_y_block(field_x.shape), k_full, x_start=kk
-    )
-    return (stacked, flags, pallas_xe)
-
-
-def resample_block_ext_cm(
-    warp_ext_cm, live_ext, prepared, params: SolverParams, ghost: int,
-    n_local: int, live_halo: int, axis_name: str,
-):
-    """Warp the haloed live block under a component-major ghost-extended
-    warp, returning the warped field on block + ``ghost`` rows per side.
-
-    Shared by the sharded and Schur solvers' fused fast paths: per-shard
-    Pallas resample when ``prepared`` (from ``prepare_block_resample`` with
-    the same ``ghost``) is given, golden jnp gather otherwise.
-    """
-    m = n_local + 2 * ghost
-    if prepared is not None:
-        from levelsetfusion_tpu.ops.pallas.resample import (
-            pick_y_block,
-            warp_field_pallas_prepared,
-        )
-
-        from levelsetfusion_tpu.ops.pallas.resample import k3
-
-        k_full = params.pallas_max_displacement
-        if isinstance(k_full, list):
-            k_full = tuple(k_full)
-        kx = k3(k_full)[0]
-        stacked, flags, xe = prepared
-        warp_k = jnp.pad(
-            warp_ext_cm,
-            ((0, 0), (0, xe - m),
-             (0, stacked.shape[2] - warp_ext_cm.shape[2]), (0, 0)),
-        )
-        return warp_field_pallas_prepared(
-            stacked,
-            warp_k,
-            k_full,
-            y_block=pick_y_block(warp_k.shape[1:]),
-            interpret=params.pallas_interpret,
-            skip_flags=flags,
-            x_start=kx,
-            component_major=True,
-        )[:m, : warp_ext_cm.shape[2]]
-    warp_ext = jnp.moveaxis(warp_ext_cm, 0, -1)
-    d = warp_ext.shape[-1]
-    shape_ext = (m,) + warp_ext.shape[1:-1]
-    start = lax.axis_index(axis_name) * n_local
-    pos0 = (
-        start - ghost + lax.broadcasted_iota(jnp.int32, shape_ext, 0)
-    ).astype(warp_ext.dtype)
-    coords = [pos0 - (start - live_halo) + warp_ext[..., 0]]
-    for ax in range(1, d):
-        ident = lax.broadcasted_iota(jnp.int32, shape_ext, ax).astype(
-            warp_ext.dtype
-        )
-        coords.append(ident + warp_ext[..., ax])
-    return sample_at(live_ext, jnp.stack(coords, axis=-1))
 
 
 @partial(
@@ -565,118 +336,24 @@ def solve_single_level_sharded(
     n_iter = n_rounds * k_int
     num_voxels = float(canonical.size)
 
-    # Per-shard Pallas fast paths (BASELINE config 5 on real chips): gate
-    # statically on shape/halo support; interpret-mode enables CPU testing.
-    # The fused path resamples the interior only (ghost=0, see
-    # block_fast_paths); the jnp stencil path needs 2 resampled ghost rows.
-    use_fused, use_pallas = block_fast_paths(params, canonical, live_halo, nd)
-    hx = params.stencil_halo
-    ghost = 0 if use_fused else 2
-    taps = ()
-    if use_fused and params.sobolev_smoothing:
-        from levelsetfusion_tpu.ops.pallas.fused_gradient import sobolev_taps
-
-        taps = sobolev_taps(
-            params.sobolev_kernel_size, params.sobolev_strength
-        )
-    x_global = canonical.shape[0]
-
     def run(canon_blk, live_blk, warp0_blk):
         live_ext = halo_exchange(
             live_blk, live_halo, axis_name, nd, fill="truncation"
         )
-        prepared = None
-        if use_pallas:
-            prepared = prepare_block_resample(
-                live_ext, params, live_halo, n_local, ghost
-            )
-        canon_ext = None
-        x_off = None
-        if use_fused:
-            # Canonical enters the fused kernel's band mask / conv reads up
-            # to hx−2 rows beyond the block; constant per solve.
-            canon_ext = halo_exchange(
-                canon_blk, hx, axis_name, nd, fill="truncation"
-            )
-            x_off = lax.axis_index(axis_name) * n_local - hx
-
-        from levelsetfusion_tpu.models.single_level import _axis_max_abs
-
         zeros = jnp.zeros((n_iter,), canon_blk.dtype)
-        warp0 = jnp.moveaxis(warp0_blk, -1, 0) if use_fused else warp0_blk
         init = (
-            warp0,
+            warp0_blk,
             jnp.zeros((), jnp.int32),
             jnp.full((), jnp.inf, canon_blk.dtype),
             jnp.asarray(params.learning_rate, canon_blk.dtype),
             jnp.full((), jnp.inf, canon_blk.dtype),
             SolveTelemetry(zeros, zeros, zeros, zeros, zeros),
-            # Fused path: the kernel reports each updated warp's per-axis
-            # max |u| in its stats; seed with the warm start's max. The jnp
-            # path reduces per iteration in the body as before.
-            (
-                _axis_max_abs(warp0, use_fused)
-                if use_fused
-                else jnp.zeros((d,), canon_blk.dtype)
-            ),
+            jnp.zeros((d,), canon_blk.dtype),
         )
 
         def cond(state):
             _, it, max_up, _, _, _, _ = state
             return (it < n_iter) & (max_up >= params.convergence_threshold)
-
-        def _fused_step(warp_cm, rate):
-            """One fused iteration, restructured for compute/comm overlap
-            (VERDICT r4 next #2a):
-
-            1. The warp ghost exchange (hx rows × 3 components) is issued
-               FIRST and has no consumer until the stencil kernel — no data
-               dependence on the resample, so the scheduler can fly it
-               under the resample's compute.
-            2. The resample reads ONLY the local warp and produces the
-               interior rows.
-            3. The warped ghost rows come from the neighbors' interiors —
-               a second, 3× smaller exchange (hx rows × 1 scalar channel);
-               global-edge fill is arbitrary (the kernel's x_offset/
-               x_global masks ignore ghost VALUES at domain edges — an
-               invariance asserted by tests/test_fused_gradient.py).
-            """
-            from levelsetfusion_tpu.ops.gradient import SmoothingMode as SM
-            from levelsetfusion_tpu.ops.pallas.fused_gradient import (
-                fused_gradient_update,
-            )
-
-            warp_ext_cm = halo_exchange(
-                warp_cm, hx, axis_name, nd, fill="replicate", axis=1
-            )
-            warped_loc = resample_block_ext_cm(
-                warp_cm, live_ext, prepared, params, 0, n_local,
-                live_halo, axis_name,
-            )
-            warped_ext = halo_exchange(
-                warped_loc, hx, axis_name, nd, fill="truncation", axis=0
-            )
-
-            return fused_gradient_update(
-                warped_ext,
-                canon_ext,
-                warp_ext_cm,
-                rate,
-                w_data=params.data_term_weight,
-                w_smooth=params.smoothing_term_weight,
-                w_ls=params.level_set_term_weight,
-                killing=params.smoothing_mode is SM.KILLING,
-                gamma=params.rigidity_enforcement_factor,
-                band_union=params.band_union_only,
-                taps=taps,
-                interpret=params.pallas_interpret,
-                x_offset=x_off,
-                x_global=x_global,
-                x_lo=hx,
-                x_len=n_local,
-            )
-
-        from levelsetfusion_tpu.models.single_level import _axis_max_abs
 
         def one_iteration(j, carry):
             """One solver iteration with NO reduction collectives: telemetry
@@ -684,27 +361,16 @@ def solve_single_level_sharded(
             after the loop); the chunk's last local stats feed the round's
             single fused reduction."""
             warp, it, rate, tel, max_disp, _ = carry
-            if use_fused:
-                new_warp, stats = _fused_step(warp, rate)
-                max_disp = jnp.maximum(max_disp, stats.max_abs_u)
-                e_data = stats.data_energy
-                e_smooth = stats.smoothing_energy
-                e_ls = stats.level_set_energy
-                max_up_l = stats.max_update
-                sum_up_l = stats.sum_update
-            else:
-                max_disp = jnp.maximum(
-                    max_disp, _axis_max_abs(warp, use_fused)
-                )
-                grad, (e_data, e_smooth, e_ls) = _block_gradient(
-                    canon_blk, live_ext, warp, params, kernel, axis_name, nd,
-                    live_halo, prepared, reduce_energies=False,
-                )
-                update = -rate * grad
-                new_warp = warp + update
-                ulen = jnp.sqrt(jnp.sum(update * update, axis=-1))
-                max_up_l = jnp.max(ulen)
-                sum_up_l = jnp.sum(ulen)
+            max_disp = jnp.maximum(max_disp, _axis_max_abs(warp))
+            grad, (e_data, e_smooth, e_ls) = _block_gradient(
+                canon_blk, live_ext, warp, params, kernel, axis_name, nd,
+                live_halo, reduce_energies=False,
+            )
+            update = -rate * grad
+            new_warp = warp + update
+            ulen = jnp.sqrt(jnp.sum(update * update, axis=-1))
+            max_up_l = jnp.max(ulen)
+            sum_up_l = jnp.sum(ulen)
 
             tel = SolveTelemetry(
                 data_energy=tel.data_energy.at[it].set(e_data),
@@ -738,8 +404,7 @@ def solve_single_level_sharded(
             cond, round_body, init
         )
         max_disp = pmax_axis(
-            jnp.maximum(max_disp, _axis_max_abs(warp, use_fused)),
-            axis_name, nd,
+            jnp.maximum(max_disp, _axis_max_abs(warp)), axis_name, nd
         )
         # Post-loop telemetry reduction: per-iteration psums/pmaxes of the
         # locally recorded values — EXACTLY the per-iteration global
@@ -753,8 +418,6 @@ def solve_single_level_sharded(
             mean_warp_update=psum_axis(tel.mean_warp_update, axis_name, nd)
             / num_voxels,
         )
-        if use_fused:
-            warp = jnp.moveaxis(warp, 0, -1)
         return warp, it, max_up < params.convergence_threshold, tel, max_disp
 
     spec = P(axis_name)

@@ -54,9 +54,8 @@ class ExperimentConfig:
     #             parallel.sharded2d with mesh_shape);
     # "schur"   = block-local inner iterations + Schur-style interface
     #             reduction, ~T× fewer collectives (parallel.schur; 1D);
-    # "schur2d" = the pod production composition: Schur-outer across mesh
-    #             axis 0 (hosts/DCN) × sync-inner along mesh axis 1
-    #             (chips/ICI) — requires mesh_shape (parallel.schur2d).
+    # "schur2d" = Schur-outer across mesh axis 0 × sync-inner along mesh
+    #             axis 1 — requires mesh_shape (parallel.schur2d).
     solver_kind: str = "sync"
     schur_inner_iterations: int = 8
 
@@ -79,12 +78,6 @@ class ExperimentConfig:
             s = dict(d["solver"])
             if isinstance(s.get("smoothing_mode"), str):
                 s["smoothing_mode"] = SmoothingMode(s["smoothing_mode"])
-            if isinstance(s.get("pallas_max_displacement"), list):
-                # Per-axis clamp: JSON round-trips tuples as lists; the
-                # solver params must stay hashable (static jit key).
-                s["pallas_max_displacement"] = tuple(
-                    s["pallas_max_displacement"]
-                )
             d["solver"] = SolverParams(**s)
         for key in ("grid_shape", "grid_offset", "mesh_shape"):
             if d.get(key) is not None:
@@ -152,31 +145,13 @@ PRESETS: Dict[str, ExperimentConfig] = {
             smoothing_mode=SmoothingMode.KILLING,
             level_set_term_weight=0.1,
             sobolev_smoothing=True,
-            # Shape-gated dispatch: engages the Pallas kernels on TPU
-            # (trailing extent 128), golden jnp path elsewhere. Measured
-            # converged per-axis max |u| on this pair is (1.51, 0.68, 2.44)
-            # voxels (round-4 TPU run — the ~6 px image shift does NOT
-            # become a 6-voxel warp under band-union masking), so a
-            # per-axis clamp with ~1-voxel headroom covers it at a
-            # fraction of the old K=6 window cost; the summary's contract
-            # entries stay the watchdog.
-            use_pallas_resample=True,
-            use_pallas_gradient=True,
-            pallas_max_displacement=(3, 2, 4),
             # Plain GD's diffusion tail needs ~1k iterations to pass the
             # 1e-3 max-warp-update gate (measured: 0.0015 at 800).
             max_iterations=1200,
         ),
     ),
-    # 4. 3D multi-frame frame-to-canonical fusion, Killing regularization.
-    # 128³ grid with z = lane width so the Pallas resample engages per frame.
-    # K (pallas_max_displacement) is sized from the MEASURED warm-started
-    # warp growth over this exact sequence (TPU run, round 4): per-axis
-    # max |u| reaches (2.46, 1.26, 5.32) voxels by frame 8 — the *z* pulse,
-    # not the x drift, grows fastest. K=6 covers it; the fusion driver's
-    # auto_raise_displacement redoes any frame that still exceeds the clamp
-    # (one recompile per raise), so the fused canonical never absorbs
-    # clamped reads.
+    # 4. 3D multi-frame frame-to-canonical fusion, Killing regularization,
+    # 8 frames at 128³.
     "config4_3d_fusion": ExperimentConfig(
         name="config4_3d_fusion",
         mode="multi_frame_3d",
@@ -188,18 +163,10 @@ PRESETS: Dict[str, ExperimentConfig] = {
         solver=_solver_3d(
             smoothing_mode=SmoothingMode.KILLING,
             max_iterations=80,
-            use_pallas_resample=True,
-            use_pallas_gradient=True,
-            # Per-axis clamp sized from the measured motion (2.46, 1.26,
-            # 5.32): the y clamp sets the resample's stacked-copy count
-            # (the dominant cost term), so pricing each axis separately
-            # keeps the K=2-class cost while covering the z pulse exactly.
-            pallas_max_displacement=(3, 2, 6),
         ),
         dataset_kwargs={"width": 96, "height": 96},
     ),
-    # 5. Sharded 3D volume across a device mesh with halo exchange. z = lane
-    # width so the per-shard Pallas resample engages on TPU.
+    # 5. Sharded 3D volume across a device mesh with halo exchange.
     "config5_sharded": ExperimentConfig(
         name="config5_sharded",
         mode="sharded_3d",
@@ -209,16 +176,13 @@ PRESETS: Dict[str, ExperimentConfig] = {
         # Budget covers the measured convergence point: the preset reaches
         # its 1e-3 gate at 302 iterations (experiments/config5_convergence
         # .py, virtual mesh) — converged: True is part of the contract.
-        solver=_solver_3d(max_iterations=320, use_pallas_resample=True,
-                          use_pallas_gradient=True),
+        solver=_solver_3d(max_iterations=320),
         live_halo=8,
     ),
     # 5-Schur. Same problem as config5_sharded solved with the BASELINE
     # north_star's mandated distributed structure: block-local inner
     # iterations + Schur-complement-style interface reduction (~8× fewer
-    # collective rounds than the sync solver; see parallel/schur.py). Runs
-    # the fused gradient kernel per shard (fused_schur_supported: the
-    # block-local Sobolev keeps the halo at the 2-ghost-row contract).
+    # collective rounds than the sync solver; see parallel/schur.py).
     "config5_sharded_schur": ExperimentConfig(
         name="config5_sharded_schur",
         mode="sharded_3d",
@@ -227,18 +191,15 @@ PRESETS: Dict[str, ExperimentConfig] = {
         grid_offset=(-64, -32, 38),
         # Total-inner budget: converges in 38 outer steps x 8 = 304
         # inner iterations at the same gate (config5_convergence.py).
-        solver=_solver_3d(max_iterations=320, use_pallas_resample=True,
-                          use_pallas_gradient=True,
-                          adaptive_learning_rate=False),
+        solver=_solver_3d(max_iterations=320, adaptive_learning_rate=False),
         live_halo=8,
         solver_kind="schur",
         schur_inner_iterations=8,
     ),
     # 5-2D. The same problem on a 2D voxel-block mesh (parallel/sharded2d):
     # axes 0 AND 1 shard, halos exchange along both mesh axes with correct
-    # corner fill. This is the composition the ≥80%-scaling target needs —
-    # block counts beyond shape[0]/min_halo require cutting a second axis.
-    # (2, 4) over 8 devices → per-shard blocks of 64×16×128.
+    # corner fill — block counts beyond shape[0]/min_halo require cutting a
+    # second axis. (2, 2) over 4 devices → per-shard blocks of 64×32×128.
     "config5_2dmesh": ExperimentConfig(
         name="config5_2dmesh",
         mode="sharded_3d",
@@ -246,16 +207,13 @@ PRESETS: Dict[str, ExperimentConfig] = {
         voxel_size=0.008,
         grid_offset=(-64, -32, 38),
         # Converges at 302 iterations (config5_convergence.py).
-        solver=_solver_3d(max_iterations=320, use_pallas_resample=True,
-                          use_pallas_gradient=True),
+        solver=_solver_3d(max_iterations=320),
         live_halo=8,
-        mesh_shape=(2, 4),
+        mesh_shape=(2, 2),
     ),
     # 5b. BASELINE's mandated scale for config 5: a 512³ volume sharded over
-    # the device mesh (64×512×512 per shard on 8 devices). On the virtual
-    # 8-device CPU mesh this validates correctness at reduced iterations;
-    # on a pod slice it is the production configuration. z = 4 lane slabs →
-    # the multi-slab Pallas resample runs per shard on TPU.
+    # the device mesh along axis 0 (the whole volume on one card, or
+    # 128×512×512 per card on four).
     "config5_512": ExperimentConfig(
         name="config5_512",
         mode="sharded_3d",
@@ -264,13 +222,11 @@ PRESETS: Dict[str, ExperimentConfig] = {
         grid_offset=(-256, -256, 38),
         # FULL energy — the workload the 512³ acceptance parity runs
         # validate (experiments/config5_512_acceptance.py: Killing +
-        # level-set + Sobolev) and the per-shard bench measures; round 4's
-        # Tikhonov-only preset understated the production energy.
+        # level-set + Sobolev).
         # termination_check_interval=4 amortizes the fused psum/pmax round
         # 4× (documented semantics: the solve may run up to 3 iterations
         # past the 1e-3 gate; telemetry stays per-iteration exact).
-        solver=_solver_3d(max_iterations=32, use_pallas_resample=True,
-                          use_pallas_gradient=True,
+        solver=_solver_3d(max_iterations=32,
                           smoothing_mode=SmoothingMode.KILLING,
                           level_set_term_weight=0.1,
                           sobolev_smoothing=True,
@@ -281,14 +237,8 @@ PRESETS: Dict[str, ExperimentConfig] = {
     # the supported path when motion exceeds the flat solver's
     # live_halo − 2 contract — coarse levels run replicated and absorb the
     # motion, fine levels run sharded with the halo sized from the measured
-    # coarse displacement.
-    # Pallas paths ON at the fine level (z = lane width; per-shard block
-    # (16, 64, 128) over 8 devices): the warm-started fine-level warp
-    # carries the FULL ~5-voxel motion, so the resample clamp must cover it
-    # — K=8 with live_halo ≥ K+3 = 11 engages the per-shard kernel without
-    # clamped reads (coarse levels have z ≠ 128 and gate off to the jnp
-    # path; they are tiny and replicated). The summary's fast_paths +
-    # contract entries make both observable.
+    # coarse displacement. The warm-started fine-level warp carries the
+    # FULL ~5-voxel motion, so the fine level's halo floor is 11.
     "config5_hierarchical": ExperimentConfig(
         name="config5_hierarchical",
         mode="hierarchical_sharded_3d",
@@ -299,19 +249,15 @@ PRESETS: Dict[str, ExperimentConfig] = {
         dataset_kwargs={"live_shift_px": 10.0},
         # Per-level budget: the levels converge at [115, 159, 43]
         # iterations on their 1e-3 gates (config5_convergence.py).
-        solver=_solver_3d(max_iterations=200, use_pallas_resample=True,
-                          use_pallas_gradient=True,
-                          pallas_max_displacement=8),
+        solver=_solver_3d(max_iterations=200),
         live_halo=11,
     ),
-    # 5-Schur2D. The pod production structure (parallel/schur2d): the
-    # volume shards over a 2D (hosts, chips) mesh; mesh axis 0 ("hosts",
-    # the axis that crosses DCN on a multi-slice deployment) runs the
-    # Schur outer structure — frozen ghosts, T block-local-in-x inner
-    # iterations, closed-form interface reduction — while every inner
-    # iteration exchanges axis-1 halos sync-style within the block row.
-    # Slow-axis collective rounds drop ~T×; see the DCN-regime table in
-    # BASELINE.md.
+    # 5-Schur2D. Schur-outer × sync-inner (parallel/schur2d): the volume
+    # shards over a 2D mesh; mesh axis 0 runs the Schur outer structure —
+    # frozen ghosts, T block-local-in-x inner iterations, closed-form
+    # interface reduction — while every inner iteration exchanges axis-1
+    # halos sync-style within the block row. Axis-0 collective rounds drop
+    # ~T×.
     "config5_schur2d": ExperimentConfig(
         name="config5_schur2d",
         mode="sharded_3d",
@@ -319,11 +265,9 @@ PRESETS: Dict[str, ExperimentConfig] = {
         voxel_size=0.008,
         grid_offset=(-64, -32, 38),
         # Converges in 38 outer steps x 8 inner (config5_convergence.py).
-        solver=_solver_3d(max_iterations=320, use_pallas_resample=True,
-                          use_pallas_gradient=True,
-                          adaptive_learning_rate=False),
+        solver=_solver_3d(max_iterations=320, adaptive_learning_rate=False),
         live_halo=8,
-        mesh_shape=(2, 4),
+        mesh_shape=(2, 2),
         solver_kind="schur2d",
         schur_inner_iterations=8,
     ),

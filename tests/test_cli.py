@@ -127,7 +127,7 @@ def test_config5_schur_runs(tmp_path):
         PRESETS["config5_sharded_schur"],
         grid_shape=(64, 32, 32),
         solver=PRESETS["config5_sharded_schur"].solver.replace(
-            max_iterations=16, use_pallas_resample=False
+            max_iterations=16
         ),
     )
     out = str(tmp_path / "c5s")
@@ -158,8 +158,9 @@ def test_config5_hierarchical_runs(tmp_path):
 
 def test_config5_2dmesh_runs(tmp_path):
     """The 2D voxel-block mesh is reachable from a preset (VERDICT r3
-    missing #1): both spatial axes shard, the contract guard checks both
-    sharded axes, and fast_paths is recorded in the summary."""
+    missing #1): both spatial axes shard over the preset's (2, 2) mesh, the
+    contract guard checks both sharded axes, and the summary records the
+    devices the run executed on."""
     cfg = small(
         PRESETS["config5_2dmesh"],
         grid_shape=(32, 32, 32),
@@ -170,9 +171,16 @@ def test_config5_2dmesh_runs(tmp_path):
     out = str(tmp_path / "c52d")
     s = run_experiment(cfg, out)
     _check_artifacts(out)
-    assert s["devices"] == 8
+    assert s["devices"] == 4
     assert s["iterations"] > 0
-    assert "fast_paths" in s and "contract_violations" in s
+    assert "contract_violations" in s
+    import jax
+
+    assert s["device"] == {
+        "platform": jax.devices()[0].platform,
+        "kind": jax.devices()[0].device_kind,
+        "count": len(jax.devices()),
+    }
     assert s["residual_reduction"] > 1.0
 
 
@@ -238,8 +246,7 @@ def test_multi_frame_sharded_2dmesh_runs(tmp_path):
         mesh_shape=(2, 2),
         live_halo=6,
         solver=PRESETS["config4_3d_fusion"].solver.replace(
-            max_iterations=10, use_pallas_resample=False,
-            use_pallas_gradient=False,
+            max_iterations=10
         ),
         dataset_kwargs={"width": 48, "height": 48},
     )

@@ -5,7 +5,7 @@ sharded solve whose telemetry matches the single-device solver.
 
 Each worker is a real OS process with ONE local CPU device; the 1D block
 mesh spans both processes, so every halo ppermute in the solve crosses the
-process boundary (the DCN path of a pod slice, modulo transport)."""
+process boundary (the path a multi-host mesh takes, modulo transport)."""
 
 import os
 import subprocess

@@ -130,10 +130,10 @@ def test_depth_fused_frame_matches_live_path():
     state0 = init_state(gen(seq.frames[0]))
     warp0 = jnp.zeros(grid.shape + (3,), jnp.float32)
 
-    s_live, w_live, r_live, _ = fuse_frame(
+    s_live, w_live, r_live = fuse_frame(
         state0, gen(seq.frames[1]), warp0, cfg.solver, cfg, 1
     )
-    s_depth, w_depth, r_depth, _ = fuse_frame(
+    s_depth, w_depth, r_depth = fuse_frame(
         state0, None, warp0, cfg.solver, cfg, 1,
         depth=jnp.asarray(seq.frames[1]), camera=seq.camera,
     )
@@ -146,13 +146,3 @@ def test_depth_fused_frame_matches_live_path():
     )
     assert r_depth.solver_iterations == r_live.solver_iterations
     assert r_depth.band_voxels == r_live.band_voxels
-
-
-def test_merge_clamp_ratchet():
-    from levelsetfusion_tpu.cli import _merge_clamp
-
-    assert _merge_clamp(2, 6) == 6
-    assert _merge_clamp(8, 6) == 8  # user raise never downgraded
-    assert _merge_clamp((3, 2, 6), (5, 1, 4)) == (5, 2, 6)
-    assert _merge_clamp(4, (3, 2, 6)) == (4, 4, 6)
-    assert _merge_clamp((3, 2, 6), 4) == (4, 4, 6)

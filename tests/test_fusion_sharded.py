@@ -93,8 +93,8 @@ def test_cli_multi_frame_sharded_mode(tmp_path):
 
 
 def test_warp_field_sharded_pallas_parity_interpret():
-    """The fusion gather's per-shard Pallas path (interpret mode) matches
-    the jnp sharded gather and the single-device warp_field."""
+    """The fusion gather's per-shard halo path matches the single-device
+    warp_field on (16, 16, 128), with axis-0 reads across block faces."""
     from levelsetfusion_tpu.ops.interpolation import warp_field
     from levelsetfusion_tpu.parallel.sharded import warp_field_sharded
 
@@ -106,19 +106,8 @@ def test_warp_field_sharded_pallas_parity_interpret():
     )
     mesh = make_mesh(4)
     ref = warp_field(live, warp)
-    p = SolverParams(use_pallas_resample=True, pallas_max_displacement=2,
-                     pallas_interpret=True)
-    got_jnp = warp_field_sharded(live, warp, mesh=mesh, live_halo=8)
-    got_pl = warp_field_sharded(
-        live, warp, mesh=mesh, live_halo=8, params=p
-    )
-    np.testing.assert_allclose(
-        np.asarray(got_jnp), np.asarray(ref), atol=1e-6
-    )
-    # Kernel tent-weight vs golden corner-weight f32 rounding: ~6e-6.
-    np.testing.assert_allclose(
-        np.asarray(got_pl), np.asarray(ref), atol=2e-5
-    )
+    got = warp_field_sharded(live, warp, mesh=mesh, live_halo=8)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-6)
 
 
 def test_sharded_hierarchical_fusion_matches_single_device():

@@ -133,9 +133,9 @@ def test_gspmd_auto_sharding_matches_single_device():
 
 
 def test_gspmd_auto_with_pallas_kernels_interpret():
-    """GSPMD × Pallas: pallas_call has no SPMD partitioning rules, so the
-    partitioner gathers its operands — the result must still be CORRECT
-    (this is where GSPMD surprises would live; VERDICT r2 weak #5)."""
+    """GSPMD on a (16, 16, 128) volume with the full Sobolev-filtered
+    energy: the partitioner's handling of the resample gather must still
+    give the single-device result (VERDICT r2 weak #5)."""
     import numpy as np_
     from levelsetfusion_tpu.parallel.mesh import solve_single_level_auto
 
@@ -146,8 +146,6 @@ def test_gspmd_auto_with_pallas_kernels_interpret():
     params = SolverParams(
         max_iterations=5, learning_rate=0.2, sobolev_smoothing=True,
         convergence_threshold=0.0,
-        use_pallas_resample=True, use_pallas_gradient=True,
-        pallas_interpret=True, pallas_max_displacement=2,
     )
     ref = solve_single_level(canonical, live, params)
     auto = solve_single_level_auto(
@@ -159,9 +157,8 @@ def test_gspmd_auto_with_pallas_kernels_interpret():
 
 
 def test_sharded_pallas_parity_interpret():
-    """Sharded solver with the per-shard Pallas resample (interpret mode on
-    the CPU mesh) matches the single-device Pallas solver — BASELINE config
-    5's fast path. Both sides clamp x/y displacements to ±K identically."""
+    """Sharded solver on (32, 8, 128) slabs with the full energy matches
+    the single-device solver — BASELINE config 5's shape family."""
     rng = np.random.default_rng(3)
     shape = (32, 8, 128)
     base = rng.standard_normal(shape).astype(np.float32)
@@ -175,14 +172,12 @@ def test_sharded_pallas_parity_interpret():
         level_set_term_weight=0.1,
         sobolev_smoothing=True,
         convergence_threshold=0.0,
-        use_pallas_resample=True,
-        pallas_interpret=True,
     )
     _parity(params, num_devices=4, live_halo=8, fields=(canonical, live))
 
 
 def test_sharded_pallas_parity_multislab_interpret():
-    """Same, with z = 2·128 (multi-slab kernel; z also clamped to ±K)."""
+    """Same, with z = 256."""
     rng = np.random.default_rng(4)
     shape = (32, 8, 256)
     base = rng.standard_normal(shape).astype(np.float32)
@@ -193,16 +188,13 @@ def test_sharded_pallas_parity_multislab_interpret():
         learning_rate=0.2,
         smoothing_term_weight=0.1,
         convergence_threshold=0.0,
-        use_pallas_resample=True,
-        pallas_interpret=True,
     )
     _parity(params, num_devices=4, live_halo=8, fields=(canonical, live))
 
 
 def test_sharded_fused_gradient_parity_interpret():
-    """Sharded solver with BOTH per-shard Pallas paths — resample + fused
-    gradient/update kernel (interpret mode on the CPU mesh) — matches the
-    single-device fused solver: the VERDICT-r2 #1 wiring."""
+    """Sharded solver, Killing + level-set + Sobolev on (32, 8, 128),
+    matches the single-device solver (VERDICT r2 #1)."""
     rng = np.random.default_rng(5)
     shape = (32, 8, 128)
     base = rng.standard_normal(shape).astype(np.float32)
@@ -216,16 +208,12 @@ def test_sharded_fused_gradient_parity_interpret():
         level_set_term_weight=0.1,
         sobolev_smoothing=True,
         convergence_threshold=0.0,
-        use_pallas_resample=True,
-        use_pallas_gradient=True,
-        pallas_interpret=True,
     )
     _parity(params, num_devices=4, live_halo=8, fields=(canonical, live))
 
 
 def test_sharded_fused_gradient_jnp_resample_parity_interpret():
-    """Fused gradient kernel with the jnp gather fallback (the path when the
-    resample gate fails but the fused-kernel gate holds)."""
+    """Tikhonov + level-set + Sobolev on (32, 16, 128) slabs."""
     rng = np.random.default_rng(6)
     shape = (32, 16, 128)
     base = rng.standard_normal(shape).astype(np.float32)
@@ -238,14 +226,12 @@ def test_sharded_fused_gradient_jnp_resample_parity_interpret():
         level_set_term_weight=0.1,
         sobolev_smoothing=True,
         convergence_threshold=0.0,
-        use_pallas_gradient=True,
-        pallas_interpret=True,
     )
     _parity(params, num_devices=4, live_halo=8, fields=(canonical, live))
 
 
 def test_sharded_fused_gradient_no_sobolev_parity_interpret():
-    """Fused sharded path without Sobolev (hx = 2 halo contract)."""
+    """Killing without Sobolev (the 2-row halo contract)."""
     rng = np.random.default_rng(7)
     shape = (32, 8, 128)
     base = rng.standard_normal(shape).astype(np.float32)
@@ -257,16 +243,13 @@ def test_sharded_fused_gradient_no_sobolev_parity_interpret():
         smoothing_term_weight=0.1,
         smoothing_mode=SmoothingMode.KILLING,
         convergence_threshold=0.0,
-        use_pallas_resample=True,
-        use_pallas_gradient=True,
-        pallas_interpret=True,
     )
     _parity(params, num_devices=4, live_halo=8, fields=(canonical, live))
 
 
 def test_sharded_per_axis_clamp_matches_single(rng):
-    """The per-shard Pallas resample path accepts a per-axis clamp tuple:
-    sharded solve == single-device solve under (kx, ky, kz)."""
+    """Sharded solve == single-device solve on (32, 8, 128) with a
+    displacement-scale warm start past the old ±2-voxel kernel window."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -279,15 +262,18 @@ def test_sharded_per_axis_clamp_matches_single(rng):
     live = jnp.asarray(np.tanh(np.roll(base, 1, axis=0) * 0.4))
     params = SolverParams(
         max_iterations=3, convergence_threshold=0.0, learning_rate=0.3,
-        use_pallas_resample=True, pallas_max_displacement=(3, 2, 4),
-        pallas_interpret=True,
     )
+    # Up to 5 voxels along y and z, 3 along the sharded x (within the
+    # live_halo − 2 = 6 contract).
+    w0 = np.zeros(shape + (3,), np.float32)
+    w0[..., 0] = rng.uniform(-3, 3, shape)
+    w0[..., 1:] = rng.uniform(-5, 5, shape + (2,))
+    w0 = jnp.asarray(w0)
     sh = solve_single_level_sharded(
-        canonical, live, params, mesh=make_mesh(4), live_halo=8
+        canonical, live, params, mesh=make_mesh(4), live_halo=8,
+        initial_warp=w0,
     )
-    ref = solve_single_level(
-        canonical, live, params.replace(use_pallas_resample=False)
-    )
+    ref = solve_single_level(canonical, live, params, initial_warp=w0)
     np.testing.assert_allclose(
         np.asarray(sh.warp), np.asarray(ref.warp), rtol=2e-5, atol=2e-5
     )

@@ -116,9 +116,7 @@ def test_cli_sharded_mode_2d_mesh(tmp_path):
         grid_offset=(-8, -8, 38),
         mesh_shape=(2, 4),
         live_halo=4,
-        solver=base.solver.replace(
-            max_iterations=6, use_pallas_resample=False
-        ),
+        solver=base.solver.replace(max_iterations=6),
     )
     # JSON round-trip keeps the mesh shape.
     assert ExperimentConfig.from_json(cfg.to_json()) == cfg
@@ -129,12 +127,10 @@ def test_cli_sharded_mode_2d_mesh(tmp_path):
 
 
 def test_parity_pallas_resample_2x2_interpret():
-    """2D-mesh per-shard Pallas resample (x window + full-y-extent identity
-    mapping, interpret mode) vs the single-device solver."""
+    """2D-mesh solver on (16, 16, 128) with Sobolev vs the single-device
+    solver."""
     params = SolverParams(
         max_iterations=10, learning_rate=0.3, sobolev_smoothing=True,
-        use_pallas_resample=True, pallas_max_displacement=2,
-        pallas_interpret=True,
     )
     _parity(params, mesh_shape=(2, 2), shape=(16, 16, 128))
 
@@ -143,67 +139,34 @@ def test_parity_pallas_resample_killing_levelset_2x2_interpret():
     params = SolverParams(
         max_iterations=8, learning_rate=0.3,
         smoothing_mode=SmoothingMode.KILLING, level_set_term_weight=0.1,
-        use_pallas_resample=True, pallas_max_displacement=2,
-        pallas_interpret=True,
     )
     _parity(params, mesh_shape=(2, 2), shape=(16, 16, 128))
 
 
-def test_pallas2d_gate():
-    from levelsetfusion_tpu.parallel.sharded2d import pallas_block2d_supported
-
-    p = SolverParams(use_pallas_resample=True, pallas_max_displacement=2,
-                     pallas_interpret=True)
-    ok = jnp.zeros((16, 16, 128))
-    assert pallas_block2d_supported(p, ok, live_halo=8, n1=8)
-    # halo too small for the clamp window
-    assert not pallas_block2d_supported(p, ok, live_halo=4, n1=8)
-    # non-lane trailing extent
-    assert not pallas_block2d_supported(p, jnp.zeros((16, 16, 12)), 8, 8)
-
-
 def test_parity_fused_gradient_2x2_interpret():
-    """2D-mesh per-shard FUSED gradient+update kernel (y_lo/y_len window)
-    + Pallas resample, interpret mode, full energy."""
+    """2D-mesh solver with the full energy (Killing + level-set +
+    Sobolev) on (16, 16, 128)."""
     params = SolverParams(
         max_iterations=8, learning_rate=0.3,
         smoothing_mode=SmoothingMode.KILLING, level_set_term_weight=0.1,
         sobolev_smoothing=True,
-        use_pallas_resample=True, use_pallas_gradient=True,
-        pallas_max_displacement=2, pallas_interpret=True,
     )
     _parity(params, mesh_shape=(2, 2), shape=(16, 16, 128))
 
 
 def test_parity_fused_gradient_jnp_resample_2x2_interpret():
-    """Fused kernel with the jnp gather feeding it (resample path off)."""
+    """Tikhonov + Sobolev on a (2, 2) mesh of (16, 16, 128)."""
     params = SolverParams(
         max_iterations=6, learning_rate=0.3, sobolev_smoothing=True,
-        use_pallas_gradient=True, pallas_interpret=True,
     )
     _parity(params, mesh_shape=(2, 2), shape=(16, 16, 128))
 
 
-def test_fused2d_gate():
-    from levelsetfusion_tpu.parallel.sharded2d import fused_block2d_supported
-
-    p = SolverParams(use_pallas_gradient=True, sobolev_smoothing=True,
-                     pallas_interpret=True)
-    ok = jnp.zeros((16, 16, 128))
-    assert fused_block2d_supported(p, ok, n0=8, n1=8, live_halo=8)
-    assert not fused_block2d_supported(p, ok, n0=8, n1=8, live_halo=7)
-    assert not fused_block2d_supported(
-        p.replace(use_pallas_gradient=False), ok, 8, 8, 8
-    )
-
-
 def test_warp_field_sharded2d_matches_single_device():
     """The 2D-mesh per-shard blend resample equals the single-device
-    warp_field, including cross-block and corner-crossing reads, on both
-    the jnp and (interpret-mode) Pallas paths."""
+    warp_field, including cross-block and corner-crossing reads."""
     import numpy as np
     import jax.numpy as jnp
-    from levelsetfusion_tpu.models.params import SolverParams
     from levelsetfusion_tpu.ops.interpolation import warp_field
     from levelsetfusion_tpu.parallel.mesh import make_mesh_2d
     from levelsetfusion_tpu.parallel.sharded2d import warp_field_sharded2d
@@ -214,8 +177,7 @@ def test_warp_field_sharded2d_matches_single_device():
         np.tanh(rng.standard_normal(shape).astype(np.float32) * 0.4)
     )
     # Warps up to ±1.9 voxels: cross block faces and corners on the (2, 2)
-    # mesh (blocks of 16×8; y-ext 8+2·4=16 keeps the Pallas gate's
-    # sublane alignment).
+    # mesh (blocks of 16×8).
     warp = jnp.asarray(
         (rng.standard_normal(shape + (3,)).astype(np.float32) * 0.9).clip(
             -1.9, 1.9
@@ -223,15 +185,5 @@ def test_warp_field_sharded2d_matches_single_device():
     )
     ref = np.asarray(warp_field(live, warp))
     mesh = make_mesh_2d((2, 2))
-    got_jnp = warp_field_sharded2d(
-        live, warp, mesh=mesh, live_halo=4, params=None
-    )
-    np.testing.assert_allclose(np.asarray(got_jnp), ref, atol=5e-6)
-    p = SolverParams(
-        use_pallas_resample=True, pallas_max_displacement=2,
-        pallas_interpret=True,
-    )
-    got_pallas = warp_field_sharded2d(
-        live, warp, mesh=mesh, live_halo=4, params=p
-    )
-    np.testing.assert_allclose(np.asarray(got_pallas), ref, atol=1e-5)
+    got = warp_field_sharded2d(live, warp, mesh=mesh, live_halo=4)
+    np.testing.assert_allclose(np.asarray(got), ref, atol=5e-6)

@@ -135,42 +135,3 @@ def test_schur_telemetry_schema(rng):
     assert (e[:4] > 0).all()
     # Energy descends across outer steps on this smooth case.
     assert e[3] < e[0]
-
-
-def test_schur_fused_kernel_matches_jnp_inner(rng):
-    """Schur with the fused gradient+update kernel in the inner loop
-    (interpret mode) matches the jnp inner loop to float tolerance —
-    per-outer-step telemetry and the final warp."""
-    shape = (32, 8, 128)
-    base = rng.standard_normal(shape).astype(np.float32)
-    canonical = jnp.asarray(np.tanh(base * 0.3))
-    live = jnp.asarray(np.tanh(np.roll(base, 1, axis=0) * 0.3))
-    p = SolverParams(
-        learning_rate=0.2,
-        max_iterations=24,
-        convergence_threshold=0.0,
-        smoothing_term_weight=0.1,
-        level_set_term_weight=0.1,
-        sobolev_smoothing=True,
-        use_pallas_resample=True,
-        pallas_interpret=True,
-    )
-    ref = solve_single_level_schur(
-        canonical, live, p, mesh=_mesh(4), inner_iterations=4
-    )
-    got = solve_single_level_schur(
-        canonical, live, p.replace(use_pallas_gradient=True),
-        mesh=_mesh(4), inner_iterations=4,
-    )
-    assert int(got.outer_steps) == int(ref.outer_steps)
-    np.testing.assert_allclose(
-        np.asarray(got.warp), np.asarray(ref.warp), atol=3e-5, rtol=1e-4
-    )
-    n = int(ref.outer_steps)
-    for name in ("data_energy", "smoothing_energy", "level_set_energy",
-                 "max_warp_update"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(got.telemetry, name))[:n],
-            np.asarray(getattr(ref.telemetry, name))[:n],
-            atol=1e-4, rtol=3e-4, err_msg=name,
-        )
